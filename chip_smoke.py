@@ -4,10 +4,16 @@
 
 Phases, each printed as one JSON line with its wall time:
   device   card, torch and CUDA versions, TF32 settings (set here)
-  build    the CUDA kernels compiled cold with nvcc
-  kernels  each kernel against its plain PyTorch version on the card, at the
-           training shape (f32, bf16) and a ragged one, with CUDA-event times
+  build    the CUDA kernels compiled cold with nvcc, one process per source,
+           all started together
+  kernels  each kernel against its plain PyTorch version on the card, with
+           CUDA-event times: the photometric kernels at the mono_fm shape
+           (192x640, f32 and bf16), the flagship's (320x1024, f32) and a
+           ragged one; the row-window sum at the probe's shape and at the
+           flagship's photometric candidate slab, beside one conv2d call
   reference  a small mono_fm step on the card against the same step on the CPU
+  reference_flagship  the same for a small flagship step (R18, 64x160,
+           pose net at 32x96, a few erased squares)
   train    mono_fm at full width (R50 depth, R18 pose, frozen R50 extractor,
            192x640, batch 12) from random weights: 1 warm-up step, 3 timed
            steps, the kernels' launch counts over the timed steps
@@ -17,6 +23,12 @@ Phases, each printed as one JSON line with its wall time:
            family), and 3 split by CUDA events that hooks record around the
            same step (each network's forward, warps and losses, backward,
            optimizer)
+  flagship  TripleDNet (`presets.flagship_bench()`: R50 depth, R18 pose,
+           joint R50 extractor, 320x1024, batch 12, 16 erased 16x16 squares
+           per sample) from random weights: 1 warm-up step, 3 timed steps,
+           every loss term, the kernels' launch counts
+  profile_flagship  the profile and step split of the flagship step
+  probe    `python -m tripled_tpu_torch.dev.element_probe`'s main() on the card
 Then the kernel summary line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Any failure raises and exits
 non-zero; without a CUDA device the script refuses to run.
@@ -25,6 +37,8 @@ non-zero; without a CUDA device the script refuses to run.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import dataclasses
 import json
 import math
 import os
@@ -34,6 +48,7 @@ import time
 from collections import defaultdict
 
 import torch
+import torch.nn.functional as F
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 STEPS = 3  # timed training steps, after one warm-up step
@@ -106,12 +121,18 @@ def bound(nbytes, flops):
             "bytes": nbytes, "flops": flops}
 
 
+MONO_FM_SHAPE = (12, 4, 192, 640, 3)
+FLAGSHIP_SHAPE = (12, 4, 320, 1024, 3)
+
+
 def check_kernels(photometric, dev, seed):
-    """Each kernel against its plain version; returns the summary rows."""
+    """Each photometric kernel against its plain version; returns the timed
+    float32 rows by shape."""
     gen = torch.Generator(dev).manual_seed(seed)
     tol = {torch.float32: (1e-5, 0.9999, 1e-4), torch.bfloat16: (1e-5, 0.9999, 8e-3)}
-    cases = [((12, 4, 192, 640, 3), torch.float32, True),
-             ((12, 4, 192, 640, 3), torch.bfloat16, True),
+    cases = [(MONO_FM_SHAPE, torch.float32, True),
+             (MONO_FM_SHAPE, torch.bfloat16, True),
+             (FLAGSHIP_SHAPE, torch.float32, True),
              ((2, 3, 37, 53, 3), torch.float32, False)]
     summary = {}
     for shape, dtype, timed in cases:
@@ -134,6 +155,7 @@ def check_kernels(photometric, dev, seed):
                "fwd_max_abs_err": fwd_err, "argmin_agreement": agree}
         if fwd_err > fwd_tol or agree < agree_tol:
             raise AssertionError(f"forward kernel disagrees with its plain version: {row}")
+        del out, idx, ref_out
 
         g = torch.rand((B, H, W), generator=gen, device=dev)
         bwd_cases = {"pruned": ((tuple(range(K // 2, K))), False),
@@ -153,6 +175,7 @@ def check_kernels(photometric, dev, seed):
             row[f"bwd_{label}_rel_err"] = abs_err / scale
             if abs_err / scale > bwd_tol:
                 raise AssertionError(f"backward kernel disagrees with its plain version: {row}")
+            del dt, dp, rdt, rdp
 
         if timed:
             grad_ks, need_t = bwd_cases["pruned"]  # what the training step asks for
@@ -165,28 +188,63 @@ def check_kernels(photometric, dev, seed):
                 target, preds, g, grad_ks, need_t), 5)
             row["fwd_bound"] = fwd_bound(shape, itemsize)
             row["bwd_bound"] = bwd_bound(shape, itemsize, ref_idx, grad_ks, need_t)
-            summary.setdefault(row["dtype"], row)
+            if dtype == torch.float32:
+                summary[shape] = row
         phase("kernels", t0, **row)
-    return summary["float32"]
+    return summary
 
 
-def reference_step(dev, seed):
-    """A small mono_fm step on the card (kernels) and on the CPU (plain
+def check_probe_kernel(probe, dev, seed):
+    """The row-window sum against its plain version at the probe's shape and
+    at the flagship's photometric candidate slab (B*K*C planes of 320x1024,
+    20 windows), with the conv2d call that computes the same sum."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    B, K, H, W, C = FLAGSHIP_SHAPE
+    th, win = probe.TH, probe.WIN
+    n_tiles = H // th
+    cases = [((probe.B, probe.R, probe.W), probe.N_TILES),
+             ((B * K * C, (n_tiles - 1) * th + win, W), n_tiles)]
+    rows = []
+    for shape, n in cases:
+        t0 = time.perf_counter()
+        x = torch.rand(shape, generator=gen, device=dev)
+        out = probe.row_window_kernel(x, th, win, n)
+        ref = probe.row_window_sum_plain(x, th, win, n)
+        ones = torch.ones((1, 1, 3, 1), device=dev)
+        lib = F.conv2d(x[:, None], ones)[:, 0, :n * th]
+        torch.cuda.synchronize()
+        # the kernel adds the three rows in the plain version's order
+        err = (out - ref).abs().max().item()
+        lib_err = (lib - ref).abs().max().item()
+        if err > 1e-6:
+            raise AssertionError(f"row-window kernel disagrees with its plain version: {err}")
+        rows_needed = n * th + 2  # the sum reads rows [0, n*th + 2) of each plane
+        nbytes = 4 * shape[0] * shape[2] * (rows_needed + n * th)
+        row = {"kernel": "element_probe", "shape": list(shape), "th": th, "win": win,
+               "n_tiles": n, "max_abs_err": err, "library_max_abs_err": lib_err,
+               "ms": cuda_ms(lambda: probe.row_window_kernel(x, th, win, n), 50),
+               "plain_ms": cuda_ms(lambda: probe.row_window_sum_plain(x, th, win, n), 20),
+               "library_ms": cuda_ms(lambda: F.conv2d(x[:, None], ones)[:, 0, :n * th], 20),
+               **bound(nbytes, 2 * shape[0] * n * th * shape[2])}
+        phase("kernels", t0, **row)
+        rows.append(row)
+    return rows
+
+
+def reference_step(dev, seed, cfg, batch, height, width, **input_kw):
+    """A small training step on the card (kernels) and on the CPU (plain
     versions) from the same weights and inputs."""
-    from tripled_tpu_torch.config import ModelConfig, OptimConfig
+    from tripled_tpu_torch.config import OptimConfig
     from tripled_tpu_torch.train.state import create_train_state
     from tripled_tpu_torch.train.step import make_train_step
     from tripled_tpu_torch.utils.inputs import random_train_inputs
 
-    cfg = ModelConfig(name="mono_fm", depth_num_layers=18, pose_num_layers=18,
-                      extractor_num_layers=18, height=64, width=128, pose_height=64,
-                      pose_width=128, depth_dropout_rate=0.0)
     metrics = {}
     for device in ("cpu", dev):
         state = create_train_state(cfg, OptimConfig(warmup_iters=2), 100, seed=seed, device=device)
         step = make_train_step(state.model, state.optimizer)
-        batch = random_train_inputs(2, 64, 128, seed, device=device)
-        metrics[str(device)] = {k: float(v) for k, v in step(batch).items()}
+        inputs = random_train_inputs(batch, height, width, seed, device=device, **input_kw)
+        metrics[str(device)] = {k: float(v) for k, v in step(inputs).items()}
     cpu, gpu = metrics["cpu"], metrics[str(dev)]
     rel = {k: abs(gpu[k] - cpu[k]) / max(abs(cpu[k]), 1e-12) for k in cpu}
     # float32 rounding of another summation order; grad_norm also carries
@@ -195,7 +253,7 @@ def reference_step(dev, seed):
     if bad or not all(math.isfinite(v) for v in gpu.values()):
         raise AssertionError(f"card step disagrees with the CPU step: {bad} {metrics}")
     return {"max_rel_diff_losses": max(r for k, r in rel.items() if k != "grad_norm"),
-            "rel_diff_grad_norm": rel["grad_norm"]}
+            "rel_diff_grad_norm": rel["grad_norm"], "keys": sorted(cpu)}
 
 
 # kernel-name patterns -> family, first match wins
@@ -299,58 +357,29 @@ def split_step(step, model, batch, gen):
     return {k: v / STEPS for k, v in totals.items()}
 
 
-def main():
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--seed", type=int, default=0)
-    args = parser.parse_args()
+FLAGSHIP_LOSS_KEYS = (
+    [f"feature_regularization_loss/{i}" for i in range(5)] + ["min_perceptional_loss"]
+    + [f"{k}/{s}" for s in range(4)
+       for k in ("img_reconstruct_loss", "min_reconstruct_loss", "smooth_loss")]
+    + ["auto_res_loss", "loss", "grad_norm"])
 
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
-    sys.path.insert(0, HERE)
-    import tripled_tpu_torch
-    from tripled_tpu_torch.ops import photometric
-    from tripled_tpu_torch.presets import mono_fm_bench
+
+def train_path(photometric, dev, seed, model_cfg, data_cfg, optim_cfg):
+    """The model's training step at full width from random weights: one
+    warm-up step, then STEPS timed steps with the photometric launch counts
+    set to 0 just before and read just after. Returns the state, the step,
+    its batch and dropout generator, and the measurements."""
     from tripled_tpu_torch.train.state import create_train_state
-    from tripled_tpu_torch.train.step import make_predict_fn, make_train_step
-    from tripled_tpu_torch.utils import cuda_build
-    from tripled_tpu_torch.utils.device import card_line
+    from tripled_tpu_torch.train.step import make_train_step
     from tripled_tpu_torch.utils.inputs import random_train_inputs
 
-    if not os.path.abspath(tripled_tpu_torch.__file__).startswith(HERE + os.sep):
-        raise SystemExit(f"tripled_tpu_torch was imported from outside {HERE}")
-
     t0 = time.perf_counter()
-    dev = torch.device("cuda", 0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    card = card_line()
-    phase("device", t0, card=card, torch=torch.__version__, cuda=torch.version.cuda,
-          gpu=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
-          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
-          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
-
-    t0 = time.perf_counter()
-    lib_path = cuda_build.library_path("photometric", photometric.SOURCES)
-    if lib_path.exists():
-        lib_path.unlink()  # build cold
-    cuda_build.build("photometric", photometric.SOURCES)
-    photometric.load_library()
-    ptxas = [ln.strip() for ln in lib_path.with_suffix(".log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
-    phase("build", t0, library=os.path.relpath(lib_path, HERE), ptxas=ptxas)
-
-    kern = check_kernels(photometric, dev, args.seed)
-
-    t0 = time.perf_counter()
-    phase("reference", t0, **reference_step(dev, args.seed))
-
-    t0 = time.perf_counter()
-    model_cfg, data_cfg, optim_cfg = mono_fm_bench()
-    state = create_train_state(model_cfg, optim_cfg, steps_per_epoch=100, seed=args.seed, device=dev)
+    state = create_train_state(model_cfg, optim_cfg, steps_per_epoch=100, seed=seed, device=dev)
     step = make_train_step(state.model, state.optimizer)
-    batch = random_train_inputs(data_cfg.batch_size, model_cfg.height, model_cfg.width,
-                                args.seed, device=dev)
-    dropout_gen = torch.Generator(dev).manual_seed(args.seed)
+    batch = random_train_inputs(data_cfg.batch_size, model_cfg.height, model_cfg.width, seed,
+                                erase_count=data_cfg.erase_count,
+                                erase_shape=data_cfg.erase_shape, device=dev)
+    dropout_gen = torch.Generator(dev).manual_seed(seed)
     metrics = step(batch, dropout_gen)  # warm-up
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
@@ -371,11 +400,82 @@ def main():
     expected = {"fwd": n_scales * STEPS, "bwd": n_scales * STEPS}
     if launches != expected:
         raise AssertionError(f"kernel launches {launches}, expected {expected}")
-    phase("train", t0, config="mono_fm R50/R18/R50 192x640 batch 12 f32", card=card,
-          warmup_step_s=warm_s, ms_per_step=step_s * 1e3,
-          images_per_s=data_cfg.batch_size / step_s,
-          peak_memory_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
-          launches=launches, metrics=metrics)
+    info = {"warmup_step_s": warm_s, "ms_per_step": step_s * 1e3,
+            "images_per_s": data_cfg.batch_size / step_s,
+            "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+            "launches": launches, "metrics": metrics}
+    return state, step, batch, dropout_gen, info
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args()
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
+    sys.path.insert(0, HERE)
+    import tripled_tpu_torch
+    from tripled_tpu_torch.config import ModelConfig
+    from tripled_tpu_torch.dev import element_probe as probe
+    from tripled_tpu_torch.ops import photometric
+    from tripled_tpu_torch.presets import flagship_bench, mono_fm_bench
+    from tripled_tpu_torch.train.step import make_predict_fn
+    from tripled_tpu_torch.utils import cuda_build
+    from tripled_tpu_torch.utils.device import card_line
+
+    if not os.path.abspath(tripled_tpu_torch.__file__).startswith(HERE + os.sep):
+        raise SystemExit(f"tripled_tpu_torch was imported from outside {HERE}")
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    phase("device", t0, card=card, torch=torch.__version__, cuda=torch.version.cuda,
+          gpu=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
+          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
+
+    t0 = time.perf_counter()
+    libraries = {"photometric": photometric, "element_probe": probe}
+    for name, module in libraries.items():
+        path = cuda_build.library_path(name, module.SOURCES)
+        if path.exists():
+            path.unlink()  # build cold
+    with concurrent.futures.ThreadPoolExecutor(len(libraries)) as pool:
+        built = dict(zip(libraries, pool.map(
+            lambda item: cuda_build.build(item[0], item[1].SOURCES), libraries.items())))
+    ptxas = {}
+    for name, module in libraries.items():
+        module.load_library()
+        ptxas[name] = [ln.strip() for ln in built[name].with_suffix(".log").read_text().splitlines()
+                       if "registers" in ln or "spill" in ln]
+    phase("build", t0, libraries={n: os.path.relpath(p, HERE) for n, p in built.items()},
+          ptxas=ptxas)
+
+    kern = check_kernels(photometric, dev, args.seed)
+    probe_rows = check_probe_kernel(probe, dev, args.seed)
+
+    t0 = time.perf_counter()
+    small = dict(depth_num_layers=18, pose_num_layers=18, extractor_num_layers=18,
+                 depth_dropout_rate=0.0)
+    phase("reference", t0, **reference_step(
+        dev, args.seed, ModelConfig(name="mono_fm", height=64, width=128, pose_height=64,
+                                    pose_width=128, **small), 2, 64, 128))
+    t0 = time.perf_counter()
+    flagship_cfg, flagship_data, flagship_optim = flagship_bench()
+    small_flagship = dataclasses.replace(flagship_cfg, height=64, width=160, pose_height=32,
+                                         pose_width=96, **small)
+    phase("reference_flagship", t0, **reference_step(
+        dev, args.seed, small_flagship, 2, 64, 160, erase_count=4, erase_shape=(8, 8)))
+
+    t0 = time.perf_counter()
+    model_cfg, data_cfg, optim_cfg = mono_fm_bench()
+    state, step, batch, gen, info = train_path(photometric, dev, args.seed, model_cfg, data_cfg,
+                                               optim_cfg)
+    train_launches = info["launches"]
+    phase("train", t0, config="mono_fm R50/R18/R50 192x640 batch 12 f32", card=card, **info)
 
     t0 = time.perf_counter()
     disp = make_predict_fn(state.model)(batch["color"][:, :1])
@@ -386,21 +486,70 @@ def main():
     phase("predict", t0, shape=list(disp.shape), min=disp.min().item(), max=disp.max().item())
 
     t0 = time.perf_counter()
-    phase("profile", t0, card=card, **profile_step(step, batch, dropout_gen),
-          step_split_ms=split_step(step, state.model, batch, dropout_gen))
+    phase("profile", t0, card=card, **profile_step(step, batch, gen),
+          step_split_ms=split_step(step, state.model, batch, gen))
+    del state, step, batch, gen, disp
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    state, step, batch, gen, info = train_path(photometric, dev, args.seed, flagship_cfg,
+                                               flagship_data, flagship_optim)
+    flagship_launches = info["launches"]
+    if list(info["metrics"]) != FLAGSHIP_LOSS_KEYS:
+        raise AssertionError(f"flagship metrics {list(info['metrics'])}, "
+                             f"expected {FLAGSHIP_LOSS_KEYS}")
+    phase("flagship", t0, config="mono_fm_joint_inpaint_disentangle R50/R18/R50 320x1024 "
+          "batch 12 f32, 16 erased 16x16 squares per sample", card=card, **info)
+
+    t0 = time.perf_counter()
+    phase("profile_flagship", t0, card=card, **profile_step(step, batch, gen),
+          step_split_ms=split_step(step, state.model, batch, gen))
+    del state, step, batch, gen
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    for k in probe.launches:
+        probe.launches[k] = 0
+    probe_err = probe.main()
+    torch.cuda.synchronize()
+    probe_launches = probe.launches["row_window_sum"]
+    if probe_launches < 1:
+        raise AssertionError("the probe did not launch its kernel")
+    phase("probe", t0, max_abs_err=probe_err, launches=probe_launches)
 
     source = "tripled_tpu_torch/csrc/photometric.cu"
+    flag = kern[FLAGSHIP_SHAPE]
+    by_shape = {direction: [
+        {"shape": list(shape), "ms": row[f"{direction}_ms"], "plain_ms": row[f"{direction}_plain_ms"],
+         "bound_ms": row[f"{direction}_bound"]["bound_ms"]} for shape, row in kern.items()]
+        for direction in ("fwd", "bwd")}
+    slab = probe_rows[-1]
     kernels = [
         {"name": "photometric_fwd", "route": "cuda", "source": source,
-         "replaces": "tripled_tpu/ops/pallas/photometric.py:200", "launches": launches["fwd"],
-         "max_abs_err": kern["fwd_max_abs_err"], "ms": kern["fwd_ms"],
-         "plain_ms": kern["fwd_plain_ms"], "bound_ms": kern["fwd_bound"]["bound_ms"],
-         "bound_by": kern["fwd_bound"]["bound_by"], "library_ms": None},
+         "replaces": "tripled_tpu/ops/pallas/photometric.py:200",
+         "launches": flagship_launches["fwd"],
+         "launches_by_path": {"train": train_launches["fwd"], "flagship": flagship_launches["fwd"]},
+         "max_abs_err": max(r["fwd_max_abs_err"] for r in kern.values()),
+         "shape": list(FLAGSHIP_SHAPE), "ms": flag["fwd_ms"], "plain_ms": flag["fwd_plain_ms"],
+         "bound_ms": flag["fwd_bound"]["bound_ms"], "bound_by": flag["fwd_bound"]["bound_by"],
+         "library_ms": None, "by_shape": by_shape["fwd"]},
         {"name": "photometric_bwd", "route": "cuda", "source": source,
-         "replaces": "tripled_tpu/ops/pallas/photometric.py:263", "launches": launches["bwd"],
-         "max_abs_err": kern["bwd_pruned_max_abs_err"], "ms": kern["bwd_ms"],
-         "plain_ms": kern["bwd_plain_ms"], "bound_ms": kern["bwd_bound"]["bound_ms"],
-         "bound_by": kern["bwd_bound"]["bound_by"], "library_ms": None},
+         "replaces": "tripled_tpu/ops/pallas/photometric.py:263",
+         "launches": flagship_launches["bwd"],
+         "launches_by_path": {"train": train_launches["bwd"], "flagship": flagship_launches["bwd"]},
+         "max_abs_err": max(r["bwd_pruned_max_abs_err"] for r in kern.values()),
+         "shape": list(FLAGSHIP_SHAPE), "ms": flag["bwd_ms"], "plain_ms": flag["bwd_plain_ms"],
+         "bound_ms": flag["bwd_bound"]["bound_ms"], "bound_by": flag["bwd_bound"]["bound_by"],
+         "library_ms": None, "by_shape": by_shape["bwd"]},
+        {"name": "element_probe", "route": "cuda",
+         "source": "tripled_tpu_torch/csrc/element_probe.cu",
+         "replaces": "dev/element_probe.py:40", "launches": probe_launches,
+         "max_abs_err": max(r["max_abs_err"] for r in probe_rows),
+         "shape": slab["shape"], "ms": slab["ms"], "plain_ms": slab["plain_ms"],
+         "bound_ms": slab["bound_ms"], "bound_by": slab["bound_by"],
+         "library_ms": slab["library_ms"],
+         "by_shape": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "library_ms")}
+                      for r in probe_rows]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -7,12 +7,15 @@ The file imports no JAX, so that it runs where JAX is absent:
 Tolerances, as in chip_smoke.py: forward 1e-5 abs and argmin agreement
 >= 0.9999 (float32 arithmetic on both sides, in another order); gradients 1e-4 of the largest
 gradient in float32, 8e-3 in bf16, where the kernel rounds its output once
-to bf16 (2^-8 relative).
+to bf16 (2^-8 relative). The row-window sum of the element probe is held
+bit for bit: kernel and plain version add the same three rows in the same
+order.
 """
 
 import pytest
 import torch
 
+from tripled_tpu_torch.dev import element_probe as probe
 from tripled_tpu_torch.ops import photometric
 
 
@@ -26,7 +29,7 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 4, 37, 53, 3), (1, 2, 2, 5, 3), (1, 3, 3, 2, 1),
-                                   (12, 4, 192, 640, 3)])
+                                   (12, 4, 192, 640, 3), (12, 4, 320, 1024, 3)])
 def test_kernels_match_plain(shape, dtype, cuda_device):
     gen = torch.Generator(cuda_device).manual_seed(0)
     B, K, H, W, C = shape
@@ -79,3 +82,27 @@ def test_kernels_are_deterministic(cuda_device):
     a = photometric.bwd_kernel(t, p, g, idx, (0, 1, 2, 3), True)
     b = photometric.bwd_kernel(t, p, g, idx, (0, 1, 2, 3), True)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,th,win,n_tiles", [
+    ((probe.B, probe.R, probe.W), probe.TH, probe.WIN, probe.N_TILES),
+    ((3, 41, 37), 7, 9, 5),
+    ((1, 30, 5), 3, 5, 9),
+    ((144, 328, 1024), 16, 24, 20),   # the flagship's photometric candidate slab
+    ((2, 130, 300), 16, 130, 1),      # a window above 48 KB of shared memory
+])
+def test_probe_kernel_matches_plain_bit_for_bit(shape, th, win, n_tiles, cuda_device):
+    x = torch.rand(shape, generator=torch.Generator(cuda_device).manual_seed(3),
+                   device=cuda_device)
+    before = probe.launches["row_window_sum"]
+    out = probe.row_window_sum(x, th, win, n_tiles)
+    assert probe.launches["row_window_sum"] == before + 1
+    ref = probe.row_window_sum_plain(x, th, win, n_tiles)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_probe_main_on_the_card(cuda_device):
+    assert probe.main() < 1e-6

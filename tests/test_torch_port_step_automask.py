@@ -10,10 +10,10 @@ tolerances are those stated in `test_torch_port_step.py`.
 
 import torch
 
-from test_torch_port_step import check_against_jax, run_both
+from test_torch_port_step import check_against_jax, mono_fm_kwargs, run_both
 
 torch.set_num_threads(1)
 
 
 def test_mono_fm_step_automask_matches_jax():
-    check_against_jax(*run_both(automask=True), automask=True)
+    check_against_jax(*run_both(mono_fm_kwargs(automask=True)), automask=True)

@@ -18,7 +18,7 @@ import jax
 import numpy as np
 import torch
 
-from test_torch_port_step import check_against_jax, run_both
+from test_torch_port_step import check_against_jax, mono_fm_kwargs, run_both
 
 torch.set_num_threads(1)
 
@@ -28,5 +28,5 @@ TOL_F64 = dict(loss=1e-12, f32_reduced_loss=1e-6, grad_norm=1e-10, grad=1e-9, pa
 
 def test_mono_fm_step_float64_matches_jax():
     with jax.enable_x64(True):
-        results = run_both(automask=False, dtype=np.float64)
+        results = run_both(mono_fm_kwargs(automask=False), dtype=np.float64)
     check_against_jax(*results, automask=False, tol=TOL_F64)

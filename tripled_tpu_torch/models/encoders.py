@@ -44,5 +44,5 @@ class Extractor(nn.Module):
         self.num_ch_enc = stage_channels(num_layers)
         self.encoder = ResNetFeatures(num_layers)
 
-    def forward(self, x):
-        return self.encoder(x)
+    def forward(self, x, graph_stages: int = 5):
+        return self.encoder(x, graph_stages)

@@ -82,3 +82,10 @@ class CRPBlock(nn.Module):
             top = conv(max_pool_5x5_same(top))
             x = top + x
         return x
+
+
+def identity_partial(x: torch.Tensor, part_ratio: int = 2, use_right: bool = False) -> torch.Tensor:
+    """Channel slice of an NCHW embedding (`tripled_tpu/models/layers.py:298-303`):
+    the first C // part_ratio channels, or with `use_right` the rest."""
+    c = x.shape[1] // part_ratio
+    return x[:, c:] if use_right else x[:, :c]

@@ -1,10 +1,12 @@
-"""TripleDNet for the mono_fm and mono_baseline presets
-(`tripled_tpu/models/net.py`).
+"""TripleDNet for the mono_baseline, mono_fm and mono_fm_joint* presets
+(`tripled_tpu/models/net.py`), the flagship
+mono_fm_joint_inpaint_disentangle included.
 
 Inputs are a dict of stacked tensors in the JAX package's layout, frame axis
 F in `cfg.frame_ids` order (index 0 is the target frame):
   color, color_aug  (B, F, H, W, 3) in [0, 1]
   K, inv_K          (B, 4, 4)
+  mask              (B, H, W, 1) inpaint erase mask, 1 = keep (inpaint only)
 In training mode the forward returns (outputs, loss_dict) with scalar
 losses; in eval mode, the 4-scale disparity list [s0..s3], each
 (B, h, w, 1). The networks run NCHW; the losses take NHWC views, as the
@@ -19,8 +21,10 @@ import torch
 import torch.nn as nn
 
 from tripled_tpu_torch.config import ModelConfig
+from tripled_tpu_torch.models.decoders import ColorDecoder, ImageDecoder
 from tripled_tpu_torch.models.depth_decoder import DepthDecoder
 from tripled_tpu_torch.models.encoders import DepthEncoder, Extractor, PoseEncoder
+from tripled_tpu_torch.models.layers import identity_partial
 from tripled_tpu_torch.models.pose_decoder import PoseDecoder
 from tripled_tpu_torch.ops.geometry import (
     disp_to_depth,
@@ -30,7 +34,13 @@ from tripled_tpu_torch.ops.geometry import (
     warp_coords,
 )
 from tripled_tpu_torch.ops.image import resize_bilinear
-from tripled_tpu_torch.ops.losses import perceptional_loss, smooth_loss
+from tripled_tpu_torch.ops.losses import (
+    erased_mean,
+    feature_regularization_loss,
+    perceptional_loss,
+    reprojection_loss,
+    smooth_loss,
+)
 from tripled_tpu_torch.ops.photometric import fused_min_reprojection
 from tripled_tpu_torch.ops.warp import grid_sample
 from tripled_tpu_torch.presets import canonicalize
@@ -50,14 +60,25 @@ class TripleDNet(nn.Module):
         cfg = canonicalize(cfg)
         self.cfg = cfg
         self.depth_encoder = DepthEncoder(cfg.depth_num_layers)
-        self.depth_decoder = DepthDecoder(self.depth_encoder.num_ch_enc,
-                                          dropout_rate=cfg.depth_dropout_rate)
+        enc_ch = self.depth_encoder.num_ch_enc
+        # a disentangled stage gives its left channel half to the depth
+        # decoder and its right half to the colour decoder
+        depth_ch = [ch // 2 if flag else ch for ch, flag in zip(enc_ch, cfg.disentangle_layers)]
+        self.depth_decoder = DepthDecoder(depth_ch, dropout_rate=cfg.depth_dropout_rate)
         self.pose_encoder = PoseEncoder(cfg.pose_num_layers, 2)
         self.pose_decoder = PoseDecoder(self.pose_encoder.num_ch_enc[-1])
         if cfg.use_extractor:
             self.extractor = Extractor(cfg.extractor_num_layers)
             if cfg.freeze_extractor:
                 self.extractor.requires_grad_(False)
+        if cfg.use_image_decoder:
+            self.image_decoder = ImageDecoder(self.extractor.num_ch_enc[4], 3)
+        if any(cfg.disentangle_layers) and cfg.auto_res_weight > 0:
+            color_ch = [ch - ch // 2 if flag else ch
+                        for ch, flag in zip(enc_ch, cfg.disentangle_layers)]
+            self.color_decoder = ColorDecoder(
+                color_ch, 3, skip_connection_multiplier=cfg.skip_connection_multiplier,
+                skip_layers=cfg.color_skip_layers)
 
     # ------------------------------------------------------------- forward
 
@@ -65,27 +86,43 @@ class TripleDNet(nn.Module):
         """`generator` draws the decoder's dropout in training."""
         c = self.cfg
         scene = self.depth_encoder(_nchw(inputs["color_aug"][:, 0]))
-        disps = [_nhwc(d) for d in self.depth_decoder(scene, generator)]
+        depth_emb = [identity_partial(f) if flag else f
+                     for f, flag in zip(scene, c.disentangle_layers)]
+        disps_nchw = self.depth_decoder(depth_emb, generator)
+        disps = [_nhwc(d) for d in disps_nchw]
         if not self.training:
             return disps
 
         outputs: Dict[str, Any] = {"disps": disps}
+        if hasattr(self, "color_decoder"):
+            color_emb = [identity_partial(f, use_right=True) if flag else f
+                         for f, flag in zip(scene, c.disentangle_layers)]
+            outputs["auto_res"] = [_nhwc(x) for x in self.color_decoder(color_emb, disps_nchw)]
         outputs["cam_T_cam"] = self._predict_poses(inputs)
 
         features = None
         if c.use_extractor:
-            features = self._extract(inputs["color"][:, 0])
+            # only the base inpaint preset masks the extractor's input; the
+            # disentangle one feeds it the whole target
+            # (`tripled_tpu/models/net.py:367-375`)
+            ext_in = inputs["color"][:, 0]
+            if c.inpaint and "disentangle" not in c.name and "mask" in inputs:
+                ext_in = ext_in * inputs["mask"]
+            features = self._extract(ext_in)
+            if c.use_image_decoder and c.img_reconstruct_weight != 0:
+                outputs["res_imgs"] = [_nhwc(x) for x in self.image_decoder(features)]
 
         return outputs, self._compute_losses(inputs, outputs, features)
 
-    def _extract(self, img):
+    def _extract(self, img, stages: int = 5):
         """Extractor features (NCHW list). Frozen: no autograd graph is kept,
         but BatchNorm still normalises with batch statistics and updates its
-        running statistics, as the JAX step does."""
+        running statistics, as the JAX step does. Stages past the first
+        `stages` run in full for those statistics, without a graph."""
         if self.cfg.freeze_extractor:
             with torch.no_grad():
                 return self.extractor(_nchw(img))
-        return self.extractor(_nchw(img))
+        return self.extractor(_nchw(img), graph_stages=stages)
 
     # --------------------------------------------------------------- poses
 
@@ -131,7 +168,8 @@ class TripleDNet(nn.Module):
         feats = []
         for i in range(1, c.num_frames):
             coords = warp_coords(depth, inv_K2, K2, outputs["cam_T_cam"][i])
-            src_f = _nhwc(self._extract(inputs["color"][:, i])[0])
+            # only stage 0 reaches the loss
+            src_f = _nhwc(self._extract(inputs["color"][:, i], stages=1)[0])
             feats.append(grid_sample(src_f, coords))
         return feats
 
@@ -141,7 +179,13 @@ class TripleDNet(nn.Module):
         c = self.cfg
         n_scales = len(c.scales)
         target = inputs["color"][:, 0]
+        mask = inputs.get("mask")
         loss_dict: Dict[str, torch.Tensor] = {}
+
+        if features is not None and c.joint_extractor:
+            for i, f in enumerate(features):
+                loss_dict[f"feature_regularization_loss/{i}"] = (
+                    feature_regularization_loss(_nhwc(f), target, c.dis, c.cvt) / (2**i) / 5.0)
 
         if features is not None and c.perception_weight > 0:
             tgt_f = _nhwc(features[0])
@@ -157,6 +201,17 @@ class TripleDNet(nn.Module):
         n_id = len(idents)
         for s in c.scales:
             disp = outputs["disps"][s]
+
+            if "res_imgs" in outputs:
+                res = outputs["res_imgs"][s]
+                h, w = res.shape[1], res.shape[2]
+                rec = reprojection_loss(res, resize_bilinear(target, h, w))
+                if c.inpaint and mask is not None:
+                    rec = erased_mean(rec, resize_bilinear(mask, h, w))
+                else:
+                    rec = rec.mean()
+                loss_dict[f"img_reconstruct_loss/{s}"] = rec / n_scales * c.img_reconstruct_weight
+
             warped = self._warp_colors(inputs, outputs, disp)
             preds = torch.stack(idents + warped, dim=1)
             min_rec, _ = fused_min_reprojection(
@@ -168,4 +223,8 @@ class TripleDNet(nn.Module):
                 disp = disp / (disp.mean(dim=(1, 2), keepdim=True) + 1e-7)
             loss_dict[f"smooth_loss/{s}"] = (
                 c.smoothness_weight * smooth_loss(disp, target) / (2**s) / n_scales)
+
+        if c.auto_res_weight > 0 and "auto_res" in outputs:
+            loss_dict["auto_res_loss"] = (
+                perceptional_loss(target, outputs["auto_res"][0]).mean() * c.auto_res_weight)
         return loss_dict

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import math
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -111,11 +112,15 @@ class ResNetFeatures(nn.Module):
             planes *= 2
         self.layers = nn.ModuleList(stages)
 
-    def forward(self, x):
+    def forward(self, x, graph_stages: int = 5):
+        """The five stages' features. Stages past the first `graph_stages`
+        run without an autograd graph: their outputs carry no gradient,
+        but their BatchNorm layers still update the running statistics."""
         x = F.relu(self.bn1(self.conv1(x)))
         feats = [x]
         x = F.max_pool2d(x, 3, stride=2, padding=1)
-        for stage in self.layers:
-            x = stage(x)
+        for i, stage in enumerate(self.layers, start=1):
+            with torch.set_grad_enabled(torch.is_grad_enabled() and i < graph_stages):
+                x = stage(x)
             feats.append(x)
         return feats

@@ -1,4 +1,5 @@
-"""Photometric and smoothness losses (`tripled_tpu/ops/losses.py`).
+"""Photometric, smoothness and feature-regularisation losses
+(`tripled_tpu/ops/losses.py`).
 
 Image tensors are NHWC; per-pixel losses are (B, H, W, 1)."""
 
@@ -86,3 +87,24 @@ def smooth_loss(disp: torch.Tensor, img: torch.Tensor, a1: float = 0.5, a2: floa
     ix, iy = _grad_x(img), _grad_y(img)
     smooth1 = _edge_weighted(dx, ix, a1) + _edge_weighted(dy, iy, a1)
     return smooth1 + _second_order_terms(disp, img, a2)
+
+
+def feature_regularization_loss(feature: torch.Tensor, img: torch.Tensor, dis: float,
+                                cvt: float) -> torch.Tensor:
+    """-dis * first-order + cvt * second-order edge-weighted gradients of an
+    encoder feature map (a = 1): the discriminative term is maximised, the
+    convergent one minimised. `img` is area-resized to the feature's size
+    and cast to its dtype."""
+    _, h, w, _ = feature.shape
+    img = resize_area(img, h, w).to(feature.dtype)
+    fx, fy = _grad_x(feature), _grad_y(feature)
+    ix, iy = _grad_x(img), _grad_y(img)
+    smooth1 = _edge_weighted(fx, ix, 1.0) + _edge_weighted(fy, iy, 1.0)
+    return -dis * smooth1 + cvt * _second_order_terms(feature, img, 1.0)
+
+
+def erased_mean(loss: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean of a per-pixel loss over the erased pixels, weighted by
+    1 - mask (mask 1 = keep): sum(loss * (1 - m)) / sum(1 - m), unguarded
+    as in the JAX package (a mask with nothing erased gives nan)."""
+    return (loss * (1 - mask)).sum() / (1 - mask).sum()

@@ -1,6 +1,8 @@
-"""Model presets of the slice: `mono_baseline` and `mono_fm`
-(`tripled_tpu/models/registry.py:36-52`), and the benchmark configuration
-`mono_fm_bench()` (`bench.py:118-140`, f32 compute and exact warp)."""
+"""Model presets of the port: `mono_baseline`, `mono_fm`, `mono_fm_joint`,
+`mono_fm_joint_inpaint` and `mono_fm_joint_inpaint_disentangle`
+(`tripled_tpu/models/registry.py:36-70`), and two operating points:
+`mono_fm_bench()` (`bench.py:118-140`) and `flagship_bench()`
+(`configs/cfg_kitti_tripled.py`), both in float32 with the exact warp."""
 
 from __future__ import annotations
 
@@ -10,15 +12,35 @@ from tripled_tpu_torch.config import DataConfig, ModelConfig, OptimConfig
 
 
 def _mono_baseline(c: ModelConfig) -> ModelConfig:
-    return dataclasses.replace(c, use_extractor=False, perception_weight=0.0)
+    return dataclasses.replace(c, use_extractor=False, use_image_decoder=False,
+                               perception_weight=0.0)
 
 
 def _mono_fm(c: ModelConfig) -> ModelConfig:
     # FeatDepth: frozen extractor, perceptual loss only
-    return dataclasses.replace(c, use_extractor=True, freeze_extractor=True)
+    return dataclasses.replace(c, use_extractor=True, freeze_extractor=True,
+                               joint_extractor=False, use_image_decoder=False)
 
 
-PRESETS = {"mono_baseline": _mono_baseline, "mono_fm": _mono_fm}
+def _mono_fm_joint(c: ModelConfig) -> ModelConfig:
+    return dataclasses.replace(c, use_extractor=True, joint_extractor=True,
+                               use_image_decoder=True)
+
+
+def _mono_fm_joint_inpaint(c: ModelConfig) -> ModelConfig:
+    c = _mono_fm_joint(c)
+    use_ext = c.perception_weight != 0.0
+    return dataclasses.replace(c, inpaint=True, use_extractor=use_ext,
+                               use_image_decoder=use_ext and c.img_reconstruct_weight != 0)
+
+
+PRESETS = {
+    "mono_baseline": _mono_baseline,
+    "mono_fm": _mono_fm,
+    "mono_fm_joint": _mono_fm_joint,
+    "mono_fm_joint_inpaint": _mono_fm_joint_inpaint,
+    "mono_fm_joint_inpaint_disentangle": _mono_fm_joint_inpaint,
+}
 
 
 def canonicalize(cfg: ModelConfig) -> ModelConfig:
@@ -44,3 +66,37 @@ def mono_fm_bench() -> tuple[ModelConfig, DataConfig, OptimConfig]:
     )
     data = DataConfig(batch_size=12)
     return model, data, OptimConfig(warmup_iters=2)
+
+
+def flagship_bench() -> tuple[ModelConfig, DataConfig, OptimConfig]:
+    """TripleDNet, the paper's model: the values of
+    `configs/cfg_kitti_tripled.py` through `configs/_common.py`. R50 depth,
+    R18 pose at its fixed 192x640, joint R50 extractor, 320x1024, batch 12,
+    the last encoder stage split between depth and colour, 16 erased 16x16
+    squares per sample.
+
+    The config sets `remat=True`; in the JAX package remat changes no
+    number (`tests/test_remat_equivalence.py`), only memory, and the port
+    runs without it."""
+    model = canonicalize(
+        ModelConfig(
+            name="mono_fm_joint_inpaint_disentangle",
+            depth_num_layers=50,
+            pose_num_layers=18,
+            extractor_num_layers=50,
+            height=320,
+            width=1024,
+            automask=True,
+            disp_norm=True,
+            dis=1e-3,
+            cvt=1e-3,
+            perception_weight=1e-3,
+            smoothness_weight=1e-3,
+            auto_res_weight=5e-3,
+            disentangle_layers=(False, False, False, False, True),
+            skip_connection_multiplier=1.0,
+            depth_disentangle_type="use_half",
+        )
+    )
+    data = DataConfig(batch_size=12, erase_shape=(16, 16), erase_count=16)
+    return model, data, OptimConfig(lr_steps=(10, 20))

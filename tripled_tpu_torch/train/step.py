@@ -18,7 +18,7 @@ def make_train_step(model: TripleDNet, optimizer: Adam) -> Callable:
 
     def train_step(batch: Dict[str, torch.Tensor], generator: torch.Generator | None = None):
         model.train()
-        _, loss_dict = model(batch, generator)
+        loss_dict = model(batch, generator)[1]  # no reference to the outputs past here
         total = sum(loss_dict.values())
         model.zero_grad(set_to_none=True)
         total.backward()

@@ -6,6 +6,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tripled_tpu_torch.data.transforms import make_erase_mask
+
 
 def kitti_intrinsics(batch: int, height: int, width: int) -> np.ndarray:
     K = np.tile(np.eye(4, dtype=np.float32), (batch, 1, 1))
@@ -17,8 +19,12 @@ def kitti_intrinsics(batch: int, height: int, width: int) -> np.ndarray:
 
 
 def random_train_inputs(batch: int, height: int, width: int, seed: int = 0,
-                        num_frames: int = 3, device="cuda") -> dict:
-    """color / color_aug (B, F, H, W, 3) in [0, 1), K and inv_K (B, 4, 4)."""
+                        num_frames: int = 3, erase_count: int = 0,
+                        erase_shape=(16, 16), device="cuda") -> dict:
+    """color / color_aug (B, F, H, W, 3) in [0, 1), K and inv_K (B, 4, 4);
+    with erase_count > 0 also the inpaint `mask` (B, H, W, 1), one
+    `make_erase_mask` per sample drawn from the same RandomState, as the
+    inpaint dataset draws one per sample."""
     rng = np.random.RandomState(seed)
     K = kitti_intrinsics(batch, height, width)
     arrays = {
@@ -27,4 +33,7 @@ def random_train_inputs(batch: int, height: int, width: int, seed: int = 0,
         "K": K,
         "inv_K": np.linalg.inv(K).astype(np.float32),
     }
+    if erase_count > 0:
+        arrays["mask"] = np.stack([make_erase_mask(rng, height, width, erase_shape, erase_count)
+                                   for _ in range(batch)])
     return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}

@@ -5,6 +5,9 @@ numpy arrays. Conv kernels go from HWIO to OIHW; flax BatchNorm
 `scale`/`bias`/`mean`/`var` go to `weight`/`bias`/`running_mean`/
 `running_var`. Every key is consumed and every tensor of the module is
 written: a missing key, a leftover key or an unwritten tensor raises.
+Trees of a `remat=True` JAX model load too: there `nn.remat` names each
+encoder's ResNet `CheckpointResNetFeatures_0` instead of `ResNetFeatures_0`.
+The disentangle split (`depth_skips`) has no variables.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from tripled_tpu_torch.models.decoders import ColorDecoder, ImageDecoder
 from tripled_tpu_torch.models.depth_decoder import DepthDecoder
 from tripled_tpu_torch.models.encoders import DepthEncoder, Extractor, PoseEncoder
 from tripled_tpu_torch.models.net import TripleDNet
@@ -81,16 +85,42 @@ class _Loader:
             self.conv(level.merge.conv, path + (f"Conv3x3_{3 * L + 1}", "Conv_0"))
             self.conv(level.disp.conv, path + (f"Conv3x3_{3 * L + 2}", "Conv_0"))
 
+    def conv_block(self, block, index: int, path):
+        self.conv(block.conv.conv, path + (f"ConvBlock_{index}", "Conv3x3_0", "Conv_0"))
+
+    def trunk_decoder(self, dec, path):
+        """ConvBlock_0.. in creation order: per level its upconv, its skip
+        (ColorDecoder, where that level has one), its iconv; then the
+        heads Conv3x3_0..3."""
+        n = 0
+        for level, (up, iconv) in enumerate(zip(dec.upconvs, dec.iconvs)):
+            blocks = [up]
+            if isinstance(dec, ColorDecoder) and level > 0 and dec.skip_layers[level - 1]:
+                blocks.append(dec.skips[level - 1])
+            for block in blocks + [iconv]:
+                self.conv_block(block, n, path)
+                n += 1
+        for j, head in enumerate(dec.heads):
+            self.conv(head.conv, path + (f"Conv3x3_{j}", "Conv_0"))
+
     def module(self, m: nn.Module, path=()):
         if isinstance(m, TripleDNet):
             for name, child in m.named_children():
                 self.module(child, path + (name,))
         elif isinstance(m, (DepthEncoder, PoseEncoder, Extractor)):
-            self.resnet(m.encoder, path + ("ResNetFeatures_0",))
+            name = "ResNetFeatures_0"
+            node = self.params
+            for key in path:
+                node = node.get(key, {})
+            if "CheckpointResNetFeatures_0" in node:  # a remat=True model
+                name = "CheckpointResNetFeatures_0"
+            self.resnet(m.encoder, path + (name,))
         elif isinstance(m, ResNetFeatures):
             self.resnet(m, path)
         elif isinstance(m, DepthDecoder):
             self.depth_decoder(m, path)
+        elif isinstance(m, (ImageDecoder, ColorDecoder)):
+            self.trunk_decoder(m, path)
         elif isinstance(m, PoseDecoder):
             for j, conv in enumerate(m.convs):
                 self.conv(conv, path + (f"Conv_{j}",))
