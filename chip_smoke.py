@@ -114,6 +114,32 @@ def bwd_bound(shape, itemsize, idx, grad_ks, need_target_grad):
     return bound(nbytes, flops)
 
 
+def ptxas_by_kernel(log: str) -> dict:
+    """`nvcc -Xptxas -v` output: each kernel's register, barrier and spill
+    lines, keyed by the symbol ptxas names it by (mangled, so each template
+    instance has its own)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and ("registers" in line or "spill" in line):
+            out.setdefault(name, []).append(line.split(":", 1)[-1].strip())
+    return out
+
+
+def device_ops(fn) -> list:
+    """The device operations (kernels, memsets, copies) one call of `fn`
+    runs, by name, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [ev.name for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def bound(nbytes, flops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
@@ -186,6 +212,9 @@ def check_kernels(photometric, dev, seed):
                 lambda: photometric.bwd_kernel(target, preds, g, ref_idx, grad_ks, need_t), 20)
             row["bwd_plain_ms"] = cuda_ms(lambda: photometric.min_reprojection_plain_backward(
                 target, preds, g, grad_ks, need_t), 5)
+            row["fwd_device_ops"] = device_ops(lambda: photometric.fwd_kernel(target, preds))
+            row["bwd_device_ops"] = device_ops(
+                lambda: photometric.bwd_kernel(target, preds, g, ref_idx, grad_ks, need_t))
             row["fwd_bound"] = fwd_bound(shape, itemsize)
             row["bwd_bound"] = bwd_bound(shape, itemsize, ref_idx, grad_ks, need_t)
             if dtype == torch.float32:
@@ -258,7 +287,7 @@ def reference_step(dev, seed, cfg, batch, height, width, **input_kw):
 
 # kernel-name patterns -> family, first match wins
 FAMILIES = [
-    ("photometric (this port's CUDA kernels)", r"fwd_kernel|bwd_coef_kernel|bwd_grad_kernel"),
+    ("photometric (this port's CUDA kernels)", r"fwd_kernel|bwd_tile_kernel"),
     ("batch norm", r"batch_norm|bn_"),
     ("convolution (cuDNN: implicit GEMM, FFT)",
      r"conv|cudnn|implicit_gemm|xmma|sm90_|cutlass|gemm|wgrad|dgrad|fft|DSE::|region_transform"),
@@ -449,10 +478,12 @@ def main():
     ptxas = {}
     for name, module in libraries.items():
         module.load_library()
-        ptxas[name] = [ln.strip() for ln in built[name].with_suffix(".log").read_text().splitlines()
-                       if "registers" in ln or "spill" in ln]
+        ptxas[name] = ptxas_by_kernel(built[name].with_suffix(".log").read_text())
+    B, K, H, W, C = FLAGSHIP_SHAPE
+    bwd_smem = {label: photometric.load_library().photometric_bwd_smem(K, C, mask, need_t)
+                for label, mask, need_t in [("pruned", 0b1100, 0), ("full", 0b1111, 1)]}
     phase("build", t0, libraries={n: os.path.relpath(p, HERE) for n, p in built.items()},
-          ptxas=ptxas)
+          ptxas=ptxas, bwd_dynamic_smem_bytes_c3=bwd_smem)
 
     kern = check_kernels(photometric, dev, args.seed)
     probe_rows = check_probe_kernel(probe, dev, args.seed)
@@ -528,6 +559,7 @@ def main():
         {"name": "photometric_fwd", "route": "cuda", "source": source,
          "replaces": "tripled_tpu/ops/pallas/photometric.py:200",
          "launches": flagship_launches["fwd"],
+         "kernel_launches_per_call": len(flag["fwd_device_ops"]),
          "launches_by_path": {"train": train_launches["fwd"], "flagship": flagship_launches["fwd"]},
          "max_abs_err": max(r["fwd_max_abs_err"] for r in kern.values()),
          "shape": list(FLAGSHIP_SHAPE), "ms": flag["fwd_ms"], "plain_ms": flag["fwd_plain_ms"],
@@ -536,6 +568,7 @@ def main():
         {"name": "photometric_bwd", "route": "cuda", "source": source,
          "replaces": "tripled_tpu/ops/pallas/photometric.py:263",
          "launches": flagship_launches["bwd"],
+         "kernel_launches_per_call": len(flag["bwd_device_ops"]),
          "launches_by_path": {"train": train_launches["bwd"], "flagship": flagship_launches["bwd"]},
          "max_abs_err": max(r["bwd_pruned_max_abs_err"] for r in kern.values()),
          "shape": list(FLAGSHIP_SHAPE), "ms": flag["bwd_ms"], "plain_ms": flag["bwd_plain_ms"],

@@ -26,23 +26,12 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 4, 37, 53, 3), (1, 2, 2, 5, 3), (1, 3, 3, 2, 1),
-                                   (12, 4, 192, 640, 3), (12, 4, 320, 1024, 3)])
-def test_kernels_match_plain(shape, dtype, cuda_device):
-    gen = torch.Generator(cuda_device).manual_seed(0)
-    B, K, H, W, C = shape
-    t = torch.rand((B, H, W, C), generator=gen, device=cuda_device).to(dtype)
-    p = torch.rand((B, K, H, W, C), generator=gen, device=cuda_device).to(dtype)
-    out, idx = photometric.fwd_kernel(t, p)
-    ref_out, ref_idx = photometric.min_reprojection_plain(t, p)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(out, ref_out, rtol=0, atol=1e-5)
-    assert (idx == ref_idx).float().mean() >= 0.9999
-    g = torch.rand(out.shape, generator=gen, device=cuda_device)
+def _hold_backward(t, p, g, idx, dtype):
+    """Both backward cases of the kernel against the plain version, at the
+    tolerances of the module docstring."""
+    K = p.shape[1]
     for grad_ks, need_t in [(tuple(range(K)), True), ((K - 1,), False)]:
-        dt, dp = photometric.bwd_kernel(t, p, g, ref_idx, grad_ks, need_t)
+        dt, dp = photometric.bwd_kernel(t, p, g, idx, grad_ks, need_t)
         rdt, rdp = photometric.min_reprojection_plain_backward(t, p, g, grad_ks, need_t)
         assert dp.dtype == dtype
         scale = max(rdp.float().abs().max().item(), 1e-12)
@@ -55,6 +44,88 @@ def test_kernels_match_plain(shape, dtype, cuda_device):
         assert (dp.float() - rdp.float()).abs().max().item() / scale <= tol
         if need_t:
             assert (dt.float() - rdt.float()).abs().max().item() / scale <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 4, 37, 53, 3), (1, 2, 2, 5, 3), (1, 3, 3, 2, 1),
+                                   (12, 4, 192, 640, 3), (12, 4, 320, 1024, 3),
+                                   # the backward's 16x32 tiles: one more than a tile,
+                                   # less than a tile, neither a multiple; C = 1
+                                   (2, 4, 17, 33, 3), (1, 3, 15, 31, 3), (1, 4, 33, 70, 3),
+                                   (2, 4, 40, 72, 1),
+                                   # six candidates, all staged at once for the target
+                                   (1, 6, 20, 40, 3)])
+def test_kernels_match_plain(shape, dtype, cuda_device):
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    B, K, H, W, C = shape
+    t = torch.rand((B, H, W, C), generator=gen, device=cuda_device).to(dtype)
+    p = torch.rand((B, K, H, W, C), generator=gen, device=cuda_device).to(dtype)
+    out, idx = photometric.fwd_kernel(t, p)
+    ref_out, ref_idx = photometric.min_reprojection_plain(t, p)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref_out, rtol=0, atol=1e-5)
+    assert (idx == ref_idx).float().mean() >= 0.9999
+    g = torch.rand(out.shape, generator=gen, device=cuda_device)
+    _hold_backward(t, p, g, ref_idx, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_near_tied_candidates_across_tile_borders(dtype, cuda_device):
+    """Candidates 1 and 2 are candidate 0 moved by +-0.01 in a checkerboard, so
+    the argmin changes between neighbouring pixels everywhere, across the
+    backward's tile borders too. The forward's min is held to 1e-5 abs; its
+    argmin may differ from the plain version's only where the two losses lie
+    within 1e-5 of each other."""
+    gen = torch.Generator(cuda_device).manual_seed(4)
+    B, K, H, W, C = 2, 3, 35, 70, 3
+    t = torch.rand((B, H, W, C), generator=gen, device=cuda_device)
+    p0 = torch.rand((B, H, W, C), generator=gen, device=cuda_device)
+    ys, xs = torch.meshgrid(torch.arange(H, device=cuda_device),
+                            torch.arange(W, device=cuda_device), indexing="ij")
+    checker = (1 - 2 * ((ys + xs) % 2)).to(torch.float32)[None, :, :, None]
+    p = torch.stack([p0, p0 + 0.01 * checker, p0 - 0.01 * checker], 1).clamp(0, 1)
+    t, p = t.to(dtype), p.to(dtype).contiguous()
+    out, idx = photometric.fwd_kernel(t, p)
+    ref_out, ref_idx = photometric.min_reprojection_plain(t, p)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref_out, rtol=0, atol=1e-5)
+    changes = (ref_idx[:, :, 1:] != ref_idx[:, :, :-1]).float().mean().item()
+    assert changes > 0.2, changes
+    losses = torch.stack([photometric.min_reprojection_plain(t, p[:, k:k + 1])[0]
+                          for k in range(K)], 1)
+    gap = (losses.gather(1, idx.long()[:, None]) - losses.gather(1, ref_idx.long()[:, None]))
+    assert gap.abs().max().item() <= 1e-5
+    g = torch.rand(out.shape, generator=gen, device=cuda_device)
+    _hold_backward(t, p, g, ref_idx, dtype)
+
+
+@pytest.mark.cuda
+def test_launches_follow_the_tensor_device(cuda_device):
+    """Inputs on the last card while card 0 is current: every kernel launches
+    on the inputs' card and agrees with its plain version there."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA devices")
+    dev = torch.device("cuda", n - 1)
+    gen = torch.Generator(dev).manual_seed(5)
+    t = torch.rand((2, 20, 40, 3), generator=gen, device=dev)
+    p = torch.rand((2, 3, 20, 40, 3), generator=gen, device=dev)
+    x = torch.rand((2, 56, 256), generator=gen, device=dev)
+    with torch.cuda.device(0):
+        out, idx = photometric.fwd_kernel(t, p)
+        g = torch.rand(out.shape, generator=gen, device=dev)
+        dt, dp = photometric.bwd_kernel(t, p, g, idx, (0, 1, 2), True)
+        rows = probe.row_window_kernel(x)
+        assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(dev)
+    assert {out.device, idx.device, dt.device, dp.device, rows.device} == {dev}
+    ref_out, ref_idx = photometric.min_reprojection_plain(t, p)
+    torch.testing.assert_close(out, ref_out, rtol=0, atol=1e-5)
+    assert (idx == ref_idx).float().mean() >= 0.9999
+    _hold_backward(t, p, g, ref_idx, torch.float32)
+    assert torch.equal(rows, probe.row_window_sum_plain(x))
 
 
 @pytest.mark.cuda

@@ -119,3 +119,14 @@ def test_kernel_wrappers_refuse_cpu_tensors(rng_np):
         photometric.fwd_kernel(t, p)
     with pytest.raises(ValueError):
         photometric.fwd_kernel(t, p[:, :, :4])
+
+
+def test_kernel_wrappers_refuse_more_than_31_candidates():
+    """The kernels carry the candidate set as a 32-bit mask: K = 32 is refused
+    by the argument checks, before the device is looked at."""
+    t, p = torch.zeros((1, 2, 2, 1)), torch.zeros((1, 32, 2, 2, 1))
+    g, idx = torch.zeros((1, 2, 2)), torch.zeros((1, 2, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="K <= 31"):
+        photometric.bwd_kernel(t, p, g, idx, (31,), False)
+    with pytest.raises(ValueError, match="K <= 31"):
+        photometric.fwd_kernel(t, p)

@@ -73,10 +73,11 @@ def row_window_kernel(x: torch.Tensor, th: int = TH, win: int = WIN,
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise TypeError("row_window_kernel takes a contiguous float32 tensor")
     b, r, w = x.shape
-    out = torch.empty((b, n_tiles * th, w), dtype=torch.float32, device=x.device)
-    err = load_library().element_probe_row_window_sum(
-        x.data_ptr(), out.data_ptr(), b, r, w, th, win, n_tiles,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):
+        out = torch.empty((b, n_tiles * th, w), dtype=torch.float32, device=x.device)
+        err = load_library().element_probe_row_window_sum(
+            x.data_ptr(), out.data_ptr(), b, r, w, th, win, n_tiles,
+            torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"element_probe_row_window_sum launch failed: cudaError {err}")
     launches["row_window_sum"] += 1

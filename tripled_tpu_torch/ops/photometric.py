@@ -45,9 +45,11 @@ def load_library() -> ctypes.CDLL:
         lib = cuda_build.load("photometric", SOURCES)
         lib.photometric_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
         lib.photometric_fwd.restype = _I
-        lib.photometric_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _P,
+        lib.photometric_bwd.argtypes = [_P, _P, _P, _P, _P, _P,
                                         _I, _I, _I, _I, _I, _I, _I, _P]
         lib.photometric_bwd.restype = _I
+        lib.photometric_bwd_smem.argtypes = [_I, _I, _I, _I]
+        lib.photometric_bwd_smem.restype = _I
         _lib = lib
     return _lib
 
@@ -114,11 +116,12 @@ def fwd_kernel(target: torch.Tensor, preds: torch.Tensor):
     if not target.is_cuda:
         raise ValueError("fwd_kernel takes CUDA tensors")
     B, K, H, W, C = preds.shape
-    out = torch.empty((B, H, W), dtype=torch.float32, device=target.device)
-    idx = torch.empty((B, H, W), dtype=torch.int32, device=target.device)
-    err = load_library().photometric_fwd(
-        target.data_ptr(), preds.data_ptr(), out.data_ptr(), idx.data_ptr(),
-        B, K, H, W, C, int(target.dtype == torch.bfloat16), _stream(target))
+    with torch.cuda.device(target.device):
+        out = torch.empty((B, H, W), dtype=torch.float32, device=target.device)
+        idx = torch.empty((B, H, W), dtype=torch.int32, device=target.device)
+        err = load_library().photometric_fwd(
+            target.data_ptr(), preds.data_ptr(), out.data_ptr(), idx.data_ptr(),
+            B, K, H, W, C, int(target.dtype == torch.bfloat16), _stream(target))
     if err != 0:
         raise RuntimeError(f"photometric_fwd launch failed: cudaError {err}")
     launches["fwd"] += 1
@@ -126,8 +129,8 @@ def fwd_kernel(target: torch.Tensor, preds: torch.Tensor):
 
 
 def bwd_kernel(target, preds, g, idx, grad_ks: Sequence[int], need_target_grad: bool):
-    """Launch the backward kernels (coefficient pass + gather pass) on CUDA
-    tensors. Returns (dt, dp) in the input dtype; dt is None unless
+    """Launch the backward kernel (one launch, no scratch) on CUDA tensors.
+    Returns (dt, dp) in the input dtype; dt is None unless
     `need_target_grad`."""
     _check(target, preds)
     if not target.is_cuda:
@@ -146,13 +149,13 @@ def bwd_kernel(target, preds, g, idx, grad_ks: Sequence[int], need_target_grad: 
         if not 0 <= k < K:
             raise ValueError(f"grad_ks entry {k} outside [0, {K})")
         mask |= 1 << k
-    coef = torch.empty((B * H * W * C, 4), dtype=torch.float32, device=target.device)
-    dp = torch.empty_like(preds)
-    dt = torch.empty_like(target) if need_target_grad else None
-    err = load_library().photometric_bwd(
-        target.data_ptr(), preds.data_ptr(), g.data_ptr(), idx.data_ptr(),
-        coef.data_ptr(), dp.data_ptr(), dt.data_ptr() if dt is not None else None,
-        B, K, H, W, C, mask, int(target.dtype == torch.bfloat16), _stream(target))
+    with torch.cuda.device(target.device):
+        dp = torch.empty_like(preds)
+        dt = torch.empty_like(target) if need_target_grad else None
+        err = load_library().photometric_bwd(
+            target.data_ptr(), preds.data_ptr(), g.data_ptr(), idx.data_ptr(),
+            dp.data_ptr(), dt.data_ptr() if dt is not None else None,
+            B, K, H, W, C, mask, int(target.dtype == torch.bfloat16), _stream(target))
     if err != 0:
         raise RuntimeError(f"photometric_bwd launch failed: cudaError {err}")
     launches["bwd"] += 1
