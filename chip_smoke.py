@@ -287,7 +287,7 @@ def reference_step(dev, seed, cfg, batch, height, width, **input_kw):
 
 # kernel-name patterns -> family, first match wins
 FAMILIES = [
-    ("photometric (this port's CUDA kernels)", r"fwd_kernel|bwd_tile_kernel"),
+    ("photometric (this port's CUDA kernels)", r"fwd_tile_kernel|bwd_tile_kernel"),
     ("batch norm", r"batch_norm|bn_"),
     ("convolution (cuDNN: implicit GEMM, FFT)",
      r"conv|cudnn|implicit_gemm|xmma|sm90_|cutlass|gemm|wgrad|dgrad|fft|DSE::|region_transform"),
@@ -337,10 +337,15 @@ def profile_step(step, batch, gen):
     by_family = defaultdict(float)
     for name, ms in by_kernel.items():
         by_family[family(name)] += ms
+    photometric_kernels = sorted(n for n in by_kernel if family(n) == FAMILIES[0][0])
+    for kernel in ("fwd_tile_kernel", "bwd_tile_kernel"):
+        if not any(kernel in n for n in photometric_kernels):
+            raise AssertionError(f"no {kernel} in the photometric family: {photometric_kernels}")
     return {"wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
             "device_idle_share": None if busy_ms is None else max(0.0, 1.0 - busy_ms / wall_ms),
             "kernel_ms_per_step": sum(by_kernel.values()),
             "by_family_ms": dict(sorted(by_family.items(), key=lambda kv: -kv[1])),
+            "photometric_kernels": photometric_kernels,
             "top_kernels_ms": [[name[:120], ms] for name, ms in
                                sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]]}
 
@@ -480,10 +485,12 @@ def main():
         module.load_library()
         ptxas[name] = ptxas_by_kernel(built[name].with_suffix(".log").read_text())
     B, K, H, W, C = FLAGSHIP_SHAPE
-    bwd_smem = {label: photometric.load_library().photometric_bwd_smem(K, C, mask, need_t)
+    lib = photometric.load_library()
+    bwd_smem = {label: lib.photometric_bwd_smem(K, C, mask, need_t)
                 for label, mask, need_t in [("pruned", 0b1100, 0), ("full", 0b1111, 1)]}
     phase("build", t0, libraries={n: os.path.relpath(p, HERE) for n, p in built.items()},
-          ptxas=ptxas, bwd_dynamic_smem_bytes_c3=bwd_smem)
+          ptxas=ptxas, fwd_dynamic_smem_bytes_c3=lib.photometric_fwd_smem(C),
+          bwd_dynamic_smem_bytes_c3=bwd_smem)
 
     kern = check_kernels(photometric, dev, args.seed)
     probe_rows = check_probe_kernel(probe, dev, args.seed)

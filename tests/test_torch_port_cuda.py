@@ -55,7 +55,10 @@ def _hold_backward(t, p, g, idx, dtype):
                                    (2, 4, 17, 33, 3), (1, 3, 15, 31, 3), (1, 4, 33, 70, 3),
                                    (2, 4, 40, 72, 1),
                                    # six candidates, all staged at once for the target
-                                   (1, 6, 20, 40, 3)])
+                                   (1, 6, 20, 40, 3),
+                                   # the forward's 32x32 tiles: one more than a tile,
+                                   # one less, neither a multiple, in both dimensions
+                                   (2, 4, 33, 65, 3), (1, 3, 31, 31, 3), (1, 4, 45, 77, 3)])
 def test_kernels_match_plain(shape, dtype, cuda_device):
     gen = torch.Generator(cuda_device).manual_seed(0)
     B, K, H, W, C = shape
@@ -72,14 +75,70 @@ def test_kernels_match_plain(shape, dtype, cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [1, 31])
+def test_forward_at_one_and_31_candidates(K, dtype, cuda_device):
+    """The forward's shared memory does not grow with K: at K = 31 a block
+    holding every candidate would need 32 tiles (over 400 KB at C = 3), more
+    than an SM has."""
+    gen = torch.Generator(cuda_device).manual_seed(6)
+    B, H, W, C = 2, 37, 70, 3
+    t = torch.rand((B, H, W, C), generator=gen, device=cuda_device).to(dtype)
+    p = torch.rand((B, K, H, W, C), generator=gen, device=cuda_device).to(dtype)
+    out, idx = photometric.fwd_kernel(t, p)
+    ref_out, ref_idx = photometric.min_reprojection_plain(t, p)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref_out, rtol=0, atol=1e-5)
+    assert (idx == ref_idx).float().mean() >= 0.9999
+    assert 0 <= idx.min().item() and idx.max().item() < K
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_ties_keep_the_first_candidate(dtype, cuda_device):
+    """Candidates 1 and 2 are bit-identical copies of candidate 0, so every
+    pixel ties three ways and keeps candidate 0, as the automask needs."""
+    gen = torch.Generator(cuda_device).manual_seed(7)
+    B, H, W, C = 2, 40, 72, 3
+    t = torch.rand((B, H, W, C), generator=gen, device=cuda_device).to(dtype)
+    p0 = torch.rand((B, 1, H, W, C), generator=gen, device=cuda_device).to(dtype)
+    p = p0.expand(B, 3, H, W, C).contiguous()
+    out, idx = photometric.fwd_kernel(t, p)
+    ref_out, _ = photometric.min_reprojection_plain(t, p)
+    torch.cuda.synchronize()
+    assert (idx == 0).all()
+    torch.testing.assert_close(out, ref_out, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_forward_off_16_byte_boundaries(cuda_device):
+    """Inputs that start 4 bytes past a 16-byte boundary are staged with
+    4-byte copies, aligned ones of a width with W * C a multiple of 4 with
+    16-byte copies: both give the same bits, and the plain version's values."""
+    gen = torch.Generator(cuda_device).manual_seed(8)
+    B, K, H, W, C = 2, 3, 37, 64, 3
+    t = torch.rand(1 + B * H * W * C, generator=gen, device=cuda_device)[1:].view(B, H, W, C)
+    p = torch.rand(1 + B * K * H * W * C, generator=gen, device=cuda_device)[1:].view(
+        B, K, H, W, C)
+    assert t.data_ptr() % 16 and p.data_ptr() % 16
+    out, idx = photometric.fwd_kernel(t, p)
+    out16, idx16 = photometric.fwd_kernel(t.clone(), p.clone())
+    ref_out, ref_idx = photometric.min_reprojection_plain(t, p)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out16) and torch.equal(idx, idx16)
+    torch.testing.assert_close(out, ref_out, rtol=0, atol=1e-5)
+    assert (idx == ref_idx).float().mean() >= 0.9999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_near_tied_candidates_across_tile_borders(dtype, cuda_device):
     """Candidates 1 and 2 are candidate 0 moved by +-0.01 in a checkerboard, so
     the argmin changes between neighbouring pixels everywhere, across the
-    backward's tile borders too. The forward's min is held to 1e-5 abs; its
-    argmin may differ from the plain version's only where the two losses lie
-    within 1e-5 of each other."""
+    forward's 32x32 and the backward's 16x32 tile borders too. The forward's
+    min is held to 1e-5 abs; its argmin may differ from the plain version's
+    only where the two losses lie within 1e-5 of each other."""
     gen = torch.Generator(cuda_device).manual_seed(4)
-    B, K, H, W, C = 2, 3, 35, 70, 3
+    B, K, H, W, C = 2, 3, 70, 100, 3
     t = torch.rand((B, H, W, C), generator=gen, device=cuda_device)
     p0 = torch.rand((B, H, W, C), generator=gen, device=cuda_device)
     ys, xs = torch.meshgrid(torch.arange(H, device=cuda_device),
@@ -149,6 +208,8 @@ def test_kernels_are_deterministic(cuda_device):
     t = torch.rand((2, 32, 48, 3), generator=gen, device=cuda_device)
     p = torch.rand((2, 4, 32, 48, 3), generator=gen, device=cuda_device)
     out, idx = photometric.fwd_kernel(t, p)
+    out2, idx2 = photometric.fwd_kernel(t, p)
+    assert torch.equal(out, out2) and torch.equal(idx, idx2)
     g = torch.rand(out.shape, generator=gen, device=cuda_device)
     a = photometric.bwd_kernel(t, p, g, idx, (0, 1, 2, 3), True)
     b = photometric.bwd_kernel(t, p, g, idx, (0, 1, 2, 3), True)

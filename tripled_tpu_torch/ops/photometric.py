@@ -48,6 +48,8 @@ def load_library() -> ctypes.CDLL:
         lib.photometric_bwd.argtypes = [_P, _P, _P, _P, _P, _P,
                                         _I, _I, _I, _I, _I, _I, _I, _P]
         lib.photometric_bwd.restype = _I
+        lib.photometric_fwd_smem.argtypes = [_I]
+        lib.photometric_fwd_smem.restype = _I
         lib.photometric_bwd_smem.argtypes = [_I, _I, _I, _I]
         lib.photometric_bwd_smem.restype = _I
         _lib = lib
