@@ -28,6 +28,14 @@ Phases, each printed as one JSON line with its wall time:
            per sample) from random weights: 1 warm-up step, 3 timed steps,
            every loss term, the kernels' launch counts
   profile_flagship  the profile and step split of the flagship step
+  train_cli  the train CLI (`tripled_tpu_torch.cli.train.main`) with the
+           port's `configs/cfg_kitti_tripled.py`, pointed at a synthetic
+           KITTI tree at KITTI's 375x1242 (28 frames: 26 train and val
+           lines, 2 steps of 12 an epoch): 1 epoch with checkpoint and eval
+           hook, then `--auto_resume` for a 2nd, then `cli.eval_depth` on
+           the epoch-2 checkpoint, which must give the hook's metrics; the
+           CLI's ms/step and the host's wait for batches, beside the bare
+           flagship step above, and the loader's ms per batch alone
   probe    `python -m tripled_tpu_torch.dev.element_probe`'s main() on the card
 Then the kernel summary line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Any failure raises and exits
@@ -44,6 +52,7 @@ import math
 import os
 import re
 import sys
+import tempfile
 import time
 from collections import defaultdict
 
@@ -441,6 +450,157 @@ def train_path(photometric, dev, seed, model_cfg, data_cfg, optim_cfg):
     return state, step, batch, dropout_gen, info
 
 
+CLI_CONFIG = """
+import dataclasses
+
+from tripled_tpu_torch.config import load_config
+
+base = load_config({base!r})
+config = dataclasses.replace(
+    base,
+    data=dataclasses.replace(base.data, in_path={root!r}, gt_depth_path={gt!r},
+                             split="synthetic"),
+    optim=dataclasses.replace(base.optim, total_epochs={epochs}),
+    work_dir={work!r},
+    log_interval=1,
+)
+"""
+
+
+def train_cli_path(photometric, dev, seed, tmp):
+    """The train CLI on the flagship config, as a user runs it, on a
+    synthetic tree under `tmp`: 1 epoch, then a resumed 2nd, then the eval
+    CLI. Only what points at the data and the run's length is changed."""
+    from tripled_tpu_torch.cli import eval_depth, train
+    from tripled_tpu_torch.config import load_config
+    from tripled_tpu_torch.data.get_dataset import get_dataset
+    from tripled_tpu_torch.data.pipeline import BatchLoader
+    from tripled_tpu_torch.data.synthetic import make_kitti_tree
+    from tripled_tpu_torch.eval.depth_metrics import METRIC_NAMES
+
+    base = os.path.join(HERE, "tripled_tpu_torch", "configs", "cfg_kitti_tripled.py")
+    t0 = time.perf_counter()
+    tree = make_kitti_tree(os.path.join(tmp, "kitti"), num_frames=28, height=375, width=1242,
+                           seed=seed)
+    tree_s = time.perf_counter() - t0
+    work = os.path.join(tmp, "work")
+    configs = {}
+    for epochs in (1, 2):
+        configs[epochs] = os.path.join(tmp, f"cfg_{epochs}.py")
+        with open(configs[epochs], "w") as f:
+            f.write(CLI_CONFIG.format(base=base, root=tree["root"], gt=tree["gt_depth_path"],
+                                      epochs=epochs, work=work))
+    cfg = load_config(configs[2])
+    reference = load_config(base)
+    if (cfg.model, cfg.data.batch_size, cfg.data.erase_count, cfg.data.erase_shape) != (
+            reference.model, reference.data.batch_size, reference.data.erase_count,
+            reference.data.erase_shape):
+        raise AssertionError("the CLI's config differs from cfg_kitti_tripled beyond the data")
+    steps_per_epoch = (tree["num_frames"] - 2) // cfg.data.batch_size
+
+    previous = os.environ.get("TRIPLED_SPLITS_DIR")
+    os.environ["TRIPLED_SPLITS_DIR"] = tree["splits_dir"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in photometric.launches:
+        photometric.launches[k] = 0
+    try:
+        t1 = time.perf_counter()
+        state, hist1 = train.main(["--config", configs[1], "--device", str(dev)])
+        run1_s = time.perf_counter() - t1
+        count1 = state.optimizer.count
+        launches1 = dict(photometric.launches)
+        del state
+        t2 = time.perf_counter()
+        state, hist2 = train.main(["--config", configs[2], "--device", str(dev), "--auto_resume"])
+        run2_s = time.perf_counter() - t2
+        count2 = state.optimizer.count
+        del state
+        launches = dict(photometric.launches)
+        t3 = time.perf_counter()
+        evaluated = eval_depth.main(["--config", configs[2], "--checkpoint",
+                                     os.path.join(work, "ckpt", "epoch_2"), "--device", str(dev)])
+        eval_s = time.perf_counter() - t3
+        # the loader alone, with no step competing for the host: an epoch's
+        # batches on the CLI's 4 threads, and one batch on one thread
+        loader_ms = {}
+        dataset = get_dataset(cfg.data, training=True)
+        for workers, n in ((4, steps_per_epoch), (1, 1)):
+            batches = iter(BatchLoader(dataset, cfg.data.batch_size, seed=cfg.seed,
+                                       num_workers=workers))
+            t4 = time.perf_counter()
+            for _ in range(n):
+                next(batches)
+            loader_ms[f"{workers}_threads"] = 1e3 * (time.perf_counter() - t4) / n
+            batches.close()
+    finally:
+        if previous is None:
+            os.environ.pop("TRIPLED_SPLITS_DIR")
+        else:
+            os.environ["TRIPLED_SPLITS_DIR"] = previous
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    torch.cuda.empty_cache()
+
+    with open(os.path.join(work, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    train_rows = [r for r in rows if "train/loss" in r]
+    epoch_rows = [r for r in rows if "epoch/loader_wait_s" in r]
+    val_rows = [r for r in rows if "val/abs_rel" in r]
+    n_steps = 2 * steps_per_epoch
+    if count1 != steps_per_epoch or count2 != n_steps:
+        raise AssertionError(f"optimizer counts {count1}, {count2}; expected "
+                             f"{steps_per_epoch}, {n_steps}")
+    # run 2 starts at epoch 1 with the count carried: its first row is step 3
+    if [r["step"] for r in train_rows] != list(range(1, n_steps + 1)):
+        raise AssertionError(f"train rows at steps {[r['step'] for r in train_rows]}")
+    if [h["epoch"] for h in hist1] != [1] or [h["epoch"] for h in hist2] != [2]:
+        raise AssertionError(f"eval hook epochs {hist1} {hist2}")
+    ckpts = sorted(os.listdir(os.path.join(work, "ckpt")))
+    if ckpts != ["epoch_1.pt", "epoch_2.pt", "latest"]:
+        raise AssertionError(f"checkpoints {ckpts}")
+    bad = [k for r in train_rows for k, v in r.items() if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"non-finite training metrics {bad}")
+    per_step = {"fwd": len(cfg.model.scales), "bwd": len(cfg.model.scales)}
+    if launches1 != {k: v * steps_per_epoch for k, v in per_step.items()} or \
+            launches != {k: v * n_steps for k, v in per_step.items()}:
+        raise AssertionError(f"photometric launches {launches1} then {launches}, expected "
+                             f"{per_step} per step")
+    hook = hist2[-1]
+    diff = {k: abs(evaluated[k] - hook[k]) for k in METRIC_NAMES}
+    if max(diff.values()) > 1e-6 or not all(math.isfinite(hook[k]) for k in METRIC_NAMES):
+        raise AssertionError(f"eval CLI {evaluated} disagrees with the hook {hook}")
+
+    # a step after an epoch's first: from one logged row to the next (the
+    # loop reads the losses at every step, so each row follows a finished step)
+    def epoch_of(row):
+        return (row["step"] - 1) // steps_per_epoch
+
+    step_ms = [1e3 * (b["time"] - a["time"]) for a, b in zip(train_rows, train_rows[1:])
+               if epoch_of(a) == epoch_of(b)]
+    ms = sum(step_ms) / len(step_ms)
+    waits = [r["epoch/loader_wait_s"] for r in epoch_rows]
+    return {"config": "tripled_tpu_torch/configs/cfg_kitti_tripled.py (R50/R18/R50 320x1024 "
+            "batch 12 f32, 16 erased 16x16 squares per sample); data, split, epochs, work dir "
+            "and log interval replaced",
+            "tree": {"frames": tree["num_frames"], "height": tree["height"],
+                     "width": tree["width"], "seconds": tree_s},
+            "steps": n_steps, "run_seconds": [run1_s, run2_s], "eval_cli_seconds": eval_s,
+            "ms_per_step_after_first": step_ms, "ms_per_step": ms,
+            "images_per_s": cfg.data.batch_size / (ms / 1e3),
+            "epoch_seconds": [r["epoch/seconds"] for r in epoch_rows],
+            "loader_wait_s_by_epoch": waits,
+            "loader_wait_ms_per_step": 1e3 * sum(waits) / n_steps,
+            "loader_wait_share_of_epochs": sum(waits) / sum(r["epoch/seconds"]
+                                                            for r in epoch_rows),
+            "loader_alone_ms_per_batch": loader_ms,
+            "eval_images_per_s": {"hook": [r["val/eval_fps"] for r in val_rows],
+                                  "eval_cli": evaluated["eval_fps"]},
+            "eval_cli_max_abs_diff": max(diff.values()),
+            "metrics_epoch_2": {k: hook[k] for k in METRIC_NAMES},
+            "peak_memory_gib": peak_gib, "launches": launches,
+            "launches_per_step": {k: v / n_steps for k, v in launches.items()}}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -533,6 +693,7 @@ def main():
     state, step, batch, gen, info = train_path(photometric, dev, args.seed, flagship_cfg,
                                                flagship_data, flagship_optim)
     flagship_launches = info["launches"]
+    flagship_ms = info["ms_per_step"]
     if list(info["metrics"]) != FLAGSHIP_LOSS_KEYS:
         raise AssertionError(f"flagship metrics {list(info['metrics'])}, "
                              f"expected {FLAGSHIP_LOSS_KEYS}")
@@ -544,6 +705,12 @@ def main():
           step_split_ms=split_step(step, state.model, batch, gen))
     del state, step, batch, gen
     torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="train_cli_") as tmp:
+        cli = train_cli_path(photometric, dev, args.seed, tmp)
+    cli_launches = cli["launches"]
+    phase("train_cli", t0, card=card, bare_flagship_ms_per_step=flagship_ms, **cli)
 
     t0 = time.perf_counter()
     for k in probe.launches:
@@ -565,18 +732,20 @@ def main():
     kernels = [
         {"name": "photometric_fwd", "route": "cuda", "source": source,
          "replaces": "tripled_tpu/ops/pallas/photometric.py:200",
-         "launches": flagship_launches["fwd"],
+         "launches": cli_launches["fwd"],
          "kernel_launches_per_call": len(flag["fwd_device_ops"]),
-         "launches_by_path": {"train": train_launches["fwd"], "flagship": flagship_launches["fwd"]},
+         "launches_by_path": {"train": train_launches["fwd"], "flagship": flagship_launches["fwd"],
+                              "train_cli": cli_launches["fwd"]},
          "max_abs_err": max(r["fwd_max_abs_err"] for r in kern.values()),
          "shape": list(FLAGSHIP_SHAPE), "ms": flag["fwd_ms"], "plain_ms": flag["fwd_plain_ms"],
          "bound_ms": flag["fwd_bound"]["bound_ms"], "bound_by": flag["fwd_bound"]["bound_by"],
          "library_ms": None, "by_shape": by_shape["fwd"]},
         {"name": "photometric_bwd", "route": "cuda", "source": source,
          "replaces": "tripled_tpu/ops/pallas/photometric.py:263",
-         "launches": flagship_launches["bwd"],
+         "launches": cli_launches["bwd"],
          "kernel_launches_per_call": len(flag["bwd_device_ops"]),
-         "launches_by_path": {"train": train_launches["bwd"], "flagship": flagship_launches["bwd"]},
+         "launches_by_path": {"train": train_launches["bwd"], "flagship": flagship_launches["bwd"],
+                              "train_cli": cli_launches["bwd"]},
          "max_abs_err": max(r["bwd_pruned_max_abs_err"] for r in kern.values()),
          "shape": list(FLAGSHIP_SHAPE), "ms": flag["bwd_ms"], "plain_ms": flag["bwd_plain_ms"],
          "bound_ms": flag["bwd_bound"]["bound_ms"], "bound_by": flag["bwd_bound"]["bound_by"],

@@ -1,5 +1,6 @@
 """tripled_tpu_torch's CUDA kernels against their plain PyTorch versions
-on the card. Every test here needs a CUDA device and skips without one.
+on the card, the data pipeline's prefetch to the card, and one step of the
+train CLI there. Every test here needs a CUDA device and skips without one.
 The file imports no JAX, so that it runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
@@ -12,9 +13,13 @@ bit for bit: kernel and plain version add the same three rows in the same
 order.
 """
 
+import math
+
+import numpy as np
 import pytest
 import torch
 
+from tripled_tpu_torch.data.pipeline import prefetch_to_device
 from tripled_tpu_torch.dev import element_probe as probe
 from tripled_tpu_torch.ops import photometric
 
@@ -238,3 +243,68 @@ def test_probe_kernel_matches_plain_bit_for_bit(shape, th, win, n_tiles, cuda_de
 @pytest.mark.cuda
 def test_probe_main_on_the_card(cuda_device):
     assert probe.main() < 1e-6
+
+
+def _host_batches(n):
+    rng = np.random.RandomState(0)
+    return [{"color": rng.rand(2, 3, 8, 16, 3).astype(np.float32),
+             "K": rng.rand(2, 4, 4).astype(np.float32),
+             "gt_depth": [rng.rand(5, 7).astype(np.float32) for _ in range(2)]}
+            for _ in range(n)]
+
+
+@pytest.mark.cuda
+def test_prefetch_to_device_delivers_the_host_batches(cuda_device):
+    host = _host_batches(5)
+    got = list(prefetch_to_device(iter(host), cuda_device, size=2))
+    assert len(got) == len(host)
+    for h, d in zip(host, got):
+        assert d["gt_depth"] is h["gt_depth"]  # stays a host list
+        for k in ("color", "K"):
+            assert d[k].device.type == "cuda"
+            assert torch.equal(d[k].cpu(), torch.from_numpy(h[k])), k
+
+
+@pytest.mark.cuda
+def test_prefetch_to_device_raises_the_producers_exception(cuda_device):
+    def batches():
+        yield from _host_batches(1)
+        raise ValueError("broken sample")
+
+    it = prefetch_to_device(batches(), cuda_device)
+    assert next(it)["color"].is_cuda
+    with pytest.raises(ValueError, match="broken sample"):
+        next(it)
+
+
+@pytest.mark.cuda
+def test_train_cli_step_on_the_card(cuda_device, tmp_path, monkeypatch):
+    """One step of a small flagship config through the train CLI on the card
+    (a 4-frame tree: 2 lines, batch 2), its checkpoint and eval hook."""
+    from tripled_tpu_torch.cli import train
+    from tripled_tpu_torch.data.synthetic import make_kitti_tree
+
+    tree = make_kitti_tree(str(tmp_path / "kitti"), num_frames=4, height=96, width=320)
+    monkeypatch.setenv("TRIPLED_SPLITS_DIR", tree["splits_dir"])
+    cfg = tmp_path / "cfg.py"
+    cfg.write_text(f"""
+from tripled_tpu_torch.config import DataConfig, ExperimentConfig, ModelConfig, OptimConfig
+config = ExperimentConfig(
+    model=ModelConfig(name="mono_fm_joint_inpaint_disentangle", depth_num_layers=18,
+                      pose_num_layers=18, extractor_num_layers=18, height=64, width=128,
+                      pose_height=64, pose_width=128, auto_res_weight=5e-3,
+                      disentangle_layers=(False, False, False, False, True)),
+    data=DataConfig(name="kitti_inpaint", split="synthetic", height=64, width=128,
+                    in_path={tree["root"]!r}, gt_depth_path={tree["gt_depth_path"]!r},
+                    batch_size=2, erase_count=4, erase_shape=(8, 8)),
+    optim=OptimConfig(total_epochs=1, warmup_iters=2),
+    work_dir={str(tmp_path / "work")!r}, log_interval=1)
+""")
+    for k in photometric.launches:
+        photometric.launches[k] = 0
+    state, history = train.main(["--config", str(cfg), "--device", str(cuda_device)])
+    assert dict(photometric.launches) == {"fwd": 4, "bwd": 4}
+    assert state.optimizer.count == 1
+    assert next(state.model.parameters()).is_cuda
+    assert (tmp_path / "work" / "ckpt" / "epoch_1.pt").exists()
+    assert all(math.isfinite(history[-1][k]) for k in ("abs_rel", "rmse", "a1"))

@@ -1,12 +1,19 @@
-"""Frozen configuration dataclasses: the fields of the JAX package's
-`ModelConfig`, `DataConfig` and `OptimConfig` (`tripled_tpu/config.py`)
-that the mono_baseline, mono_fm and mono_fm_joint* training steps read,
-with the same defaults. A field whose other values belong to branches not
-ported yet (attention or 1x1 skips, `use_pfp`) takes only its default."""
+"""Frozen configuration dataclasses (`tripled_tpu/config.py`): the fields
+of the JAX package's `ModelConfig` that the mono_baseline, mono_fm and
+mono_fm_joint* training steps read, and every field of `DataConfig`,
+`OptimConfig` and `ExperimentConfig`, with the same defaults. A model
+field whose other values belong to branches not ported yet (attention or
+1x1 skips, `use_pfp`) takes only its default. Experiment configs are
+python files defining `config` (`tripled_tpu_torch/configs/`), read with
+`load_config`."""
 
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
+import os
+import pprint
+import sys
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +60,9 @@ class ModelConfig:
     # dropout on the two deepest skips of the CRP DepthDecoder; 0.0 for
     # deterministic parity runs
     depth_dropout_rate: float = 0.5
+    # rematerialise encoder activations in the backward pass; the port runs
+    # without it for now (the training loop warns)
+    remat: bool = False
 
     def __post_init__(self):
         later = "a later slice of the port"
@@ -73,10 +83,33 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    batch_size: int = 12
+    name: str = "kitti"
+    split: str = "exp"
+    height: int = 192
+    width: int = 640
+    frame_ids: tuple = (0, -1, 1)
+    in_path: str = ""
+    gt_depth_path: str = ""
+    png: bool = True
+    stereo_scale: bool = False
     # inpaint erase masks: erase_count squares of erase_shape per sample
     erase_shape: tuple = (16, 16)
     erase_count: int = 0
+    # map-pose alphas
+    map_alphas: tuple = ()
+    # also emit the Lab conversion of each resized frame
+    add_lab: bool = False
+    # loader
+    batch_size: int = 12
+    shuffle: bool = True
+    seed: int = 1024
+    # in-RAM cache of decoded and resized frames (uint8, lossless), in MB;
+    # 0 = off. Env override: TRIPLED_DECODE_CACHE_MB.
+    decode_cache_mb: int = 0
+    # color_aug made on the device from per-sample jitter factors, and
+    # frames shipped as uint8: not ported yet (the datasets refuse them)
+    device_color_aug: bool = False
+    ship_uint8: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,8 +121,51 @@ class OptimConfig:
     warmup_ratio: float = 1.0 / 3.0
     lr_steps: tuple = (20, 30)   # epochs
     lr_gamma: float = 0.5
+    total_epochs: int = 40
     # paramwise multipliers: non-norm biases (lr / weight decay) and
     # norm-layer weight decay
     bias_lr_mult: float = 1.0
     bias_decay_mult: float = 1.0
     norm_decay_mult: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class ExperimentConfig:
+    model: ModelConfig = ModelConfig()
+    data: DataConfig = DataConfig()
+    optim: OptimConfig = OptimConfig()
+    work_dir: str = "work_dir"
+    seed: int = 1024
+    validate: bool = True
+    validate_interval: int = 1
+    checkpoint_interval: int = 1
+    log_interval: int = 50
+    resume_from: str | None = None
+    finetune: str | None = None
+    load_from: str | None = None
+
+
+def load_config(path: str) -> ExperimentConfig:
+    """Execute a python config file that defines `config`, an
+    ExperimentConfig of this package. The file's directory is on sys.path
+    while it runs, so that it may import a sibling helper; the port's own
+    configs import theirs by package path, since a bare `_common` may
+    already stand in sys.modules for another package's configs."""
+    cfg_dir = os.path.dirname(os.path.abspath(path))
+    spec = importlib.util.spec_from_file_location("_experiment_config", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.path.insert(0, cfg_dir)
+    try:
+        spec.loader.exec_module(mod)
+    finally:
+        sys.path.remove(cfg_dir)
+    cfg = getattr(mod, "config", None)
+    if not isinstance(cfg, ExperimentConfig):
+        raise TypeError(f"{path} must define `config`, a {__name__}.ExperimentConfig; "
+                        f"got {type(cfg).__module__}.{type(cfg).__qualname__}")
+    return cfg
+
+
+def dump_config(cfg: ExperimentConfig, path: str) -> None:
+    with open(path, "w") as f:
+        f.write(pprint.pformat(dataclasses.asdict(cfg), width=100))

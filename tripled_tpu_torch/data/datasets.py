@@ -1,0 +1,265 @@
+"""Triplet-frame datasets (`tripled_tpu/data/datasets.py`), numpy and PIL
+on the host. Each dataset gives one sample dict of fixed-shape float32
+arrays, stacked over the frame axis in `frame_ids` order (index 0 is the
+target); `pipeline.py` batches them.
+
+Sample keys (a subset, by dataset):
+  color, color_aug  (F, H, W, 3)
+  K, inv_K          (4, 4)
+  mask              (H, W, 1)   1 = keep, 0 = erased (inpaint datasets)
+  color_lab         (F, H, W, 3) with DataConfig.add_lab
+  stereo_T          (4, 4)      when "s" is in frame_ids
+  gt_depth          (h, w)      validation, at the ground truth's own size
+
+Each draw from the sample's RandomState comes in the JAX package's order
+(jitter?, flip?, the jitter's factors, then the erase squares), so that
+both packages make the same sample from the same seed. Decoding is PIL
+only: the JAX package's optional native loader is not ported.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from typing import Sequence
+
+import numpy as np
+
+from tripled_tpu_torch.config import DataConfig
+from tripled_tpu_torch.data.transforms import (
+    ColorJitter,
+    load_image,
+    make_erase_mask,
+    resize_antialias,
+    to_float,
+)
+
+
+class _DecodeCache:
+    """Bounded in-RAM cache of decoded and resized frames, kept as uint8.
+    PIL's resize gives uint8, so this is lossless. Frames are cached
+    unflipped and mirrored on read. Insertion stops at the byte cap;
+    thread-safe under the loader's worker pool."""
+
+    def __init__(self, cap_bytes: int):
+        self.cap = cap_bytes
+        self.used = 0
+        self._lock = threading.Lock()
+        self._d: dict = {}
+
+    def get(self, key):
+        return self._d.get(key)
+
+    def put(self, key, arr: np.ndarray) -> None:
+        with self._lock:
+            if key in self._d or self.used + arr.nbytes > self.cap:
+                return
+            self._d[key] = arr
+            self.used += arr.nbytes
+
+
+class MonoDataset:
+    """Base triplet loader. Subclasses define `K_norm`, `full_res_shape`
+    and `get_image_path`."""
+
+    K_norm = np.array(
+        [[0.58, 0, 0.5, 0], [0, 1.92, 0.5, 0], [0, 0, 1, 0], [0, 0, 0, 1]], np.float32)
+    full_res_shape = (1242, 375)  # (W, H)
+
+    def __init__(
+        self,
+        data_path: str,
+        filenames: Sequence[str],
+        height: int,
+        width: int,
+        frame_ids: Sequence,
+        cfg: DataConfig | None = None,
+        is_train: bool = False,
+        img_ext: str = ".jpg",
+        gt_depth_path: str | None = None,
+    ):
+        self.data_path = data_path
+        self.filenames = list(filenames)
+        self.height = height
+        self.width = width
+        self.frame_ids = tuple(frame_ids)
+        self.cfg = cfg or DataConfig()
+        self.is_train = is_train
+        self.img_ext = img_ext
+        self.jitter = ColorJitter()
+        if self.cfg.device_color_aug or self.cfg.ship_uint8:
+            raise ValueError("DataConfig.device_color_aug and ship_uint8 are not ported yet "
+                             "(ROADMAP.md §1 item 6)")
+        cap_mb = int(os.environ.get("TRIPLED_DECODE_CACHE_MB", str(self.cfg.decode_cache_mb)))
+        self._decode_cache = _DecodeCache(cap_mb << 20) if cap_mb > 0 else None
+        self.gt_depths = None
+        if not is_train and gt_depth_path:
+            self.gt_depths = np.load(gt_depth_path, allow_pickle=True, fix_imports=True,
+                                     encoding="latin1")["data"]
+
+    def __len__(self):
+        return len(self.filenames)
+
+    # -------------------------------------------------------- subclass API
+
+    def get_image_path(self, folder, frame_index, side) -> str:
+        raise NotImplementedError
+
+    def get_color(self, folder, frame_index, side, do_flip):
+        img = load_image(self.get_image_path(folder, frame_index, side))
+        if do_flip:
+            img = img.transpose(0)  # PIL FLIP_LEFT_RIGHT
+        return img
+
+    # -------------------------------------------------------- sample
+
+    def parse_line(self, index):
+        line = self.filenames[index].split()
+        folder = line[0]
+        frame_index = int(line[1]) if len(line) == 3 else 0
+        side = line[2] if len(line) == 3 else None
+        return folder, frame_index, side
+
+    def _load_resized(self, folder, frame_index, side, do_flip) -> np.ndarray:
+        """One frame as float32 (H, W, 3) in [0, 1], resized and optionally
+        flipped, through the decode cache when it is on."""
+        cache = self._decode_cache
+        if cache is None:
+            return self._decode(folder, frame_index, side, do_flip)
+        key = self.get_image_path(folder, frame_index, side)
+        hit = cache.get(key)
+        if hit is None:
+            hit = np.rint(self._decode(folder, frame_index, side, False) * 255.0).astype(np.uint8)
+            cache.put(key, hit)
+        img = hit.astype(np.float32) / 255.0
+        return img[:, ::-1] if do_flip else img
+
+    def _decode(self, folder, frame_index, side, do_flip) -> np.ndarray:
+        img = self.get_color(folder, frame_index, side, do_flip)
+        return to_float(resize_antialias(img, self.height, self.width))
+
+    def load_frames(self, index, do_flip):
+        """The sample's frames; a missing neighbour falls back to the
+        centre frame."""
+        folder, frame_index, side = self.parse_line(index)
+        frames = []
+        for i in self.frame_ids:
+            if i == "s":
+                other = {"r": "l", "l": "r"}[side]
+                frames.append(self._load_resized(folder, frame_index, other, do_flip))
+            else:
+                try:
+                    frames.append(self._load_resized(folder, frame_index + i, side, do_flip))
+                except Exception:
+                    frames.append(self._load_resized(folder, frame_index, side, do_flip))
+        return frames, side
+
+    def sample(self, index: int, rng: np.random.RandomState) -> dict:
+        do_color_aug = self.is_train and rng.rand() > 0.5
+        do_flip = self.is_train and rng.rand() > 0.5
+
+        frames, side = self.load_frames(index, do_flip)
+        colors = np.stack(frames)  # (F, H, W, 3) float32 in [0, 1]
+        if do_color_aug:
+            aug = self.jitter.sample(rng)
+            color_aug = np.stack([aug(c) for c in colors])
+        else:
+            color_aug = colors.copy()
+
+        K = self.K_norm.copy()
+        K[0, :] *= self.width
+        K[1, :] *= self.height
+        inv_K = np.linalg.pinv(K).astype(np.float32)
+
+        out = {
+            "color": colors.astype(np.float32),
+            "K": K.astype(np.float32),
+            "inv_K": inv_K,
+            "color_aug": color_aug.astype(np.float32),
+        }
+        if self.cfg.add_lab:
+            # PIL ImageCms Lab of each frame, scaled to [0, 1] per channel as
+            # a uint8 Lab image is
+            from PIL import Image, ImageCms
+
+            tf = ImageCms.buildTransformFromOpenProfiles(
+                ImageCms.createProfile("sRGB"), ImageCms.createProfile("LAB"), "RGB", "LAB")
+            labs = [np.asarray(ImageCms.applyTransform(
+                Image.fromarray((c * 255).astype(np.uint8)), tf), np.float32) / 255.0
+                for c in colors]
+            out["color_lab"] = np.stack(labs)
+        if "s" in self.frame_ids:
+            stereo_T = np.eye(4, dtype=np.float32)
+            baseline_sign = -1 if do_flip else 1
+            side_sign = -1 if side == "l" else 1
+            stereo_T[0, 3] = side_sign * baseline_sign * 0.015
+            out["stereo_T"] = stereo_T
+
+        self.post_process(out, rng)
+
+        if self.gt_depths is not None:
+            out["gt_depth"] = np.asarray(self.gt_depths[index], np.float32)
+        return out
+
+    def post_process(self, out: dict, rng: np.random.RandomState) -> None:
+        """Hook for masks and pretext extras."""
+
+
+class KITTIRawDataset(MonoDataset):
+    side_map = {"2": 2, "3": 3, "l": 2, "r": 3}
+
+    def get_image_path(self, folder, frame_index, side):
+        f_str = f"{frame_index:010d}{self.img_ext}"
+        return os.path.join(self.data_path, folder, f"image_0{self.side_map[side]}/data", f_str)
+
+
+class KITTIInpaintDataset(KITTIRawDataset):
+    def post_process(self, out, rng):
+        out["mask"] = make_erase_mask(rng, self.height, self.width, self.cfg.erase_shape,
+                                      self.cfg.erase_count)
+
+
+class KITTIOdomDataset(MonoDataset):
+    K_norm = KITTIRawDataset.K_norm
+
+    def get_image_path(self, folder, frame_index, side):
+        side_map = {"l": 0, "r": 1}
+        return os.path.join(self.data_path, f"sequences/{int(folder):02d}",
+                            f"image_{side_map[side]}", f"{frame_index:06d}{self.img_ext}")
+
+
+class FolderDataset(MonoDataset):
+    """Plain image directory: the sorted files are the frames."""
+
+    K_norm = np.array(
+        [[0.9765, 0, 0.5, 0], [0, 1.736, 0.5, 0], [0, 0, 1, 0], [0, 0, 0, 1]], np.float32)
+
+    def __init__(self, data_path, filenames=None, **kw):
+        files = sorted(os.listdir(data_path))
+        super().__init__(data_path, files, **kw)
+
+    def parse_line(self, index):
+        return self.filenames[index], index, None
+
+    def get_image_path(self, folder, frame_index, side):
+        idx = min(max(frame_index, 0), len(self.filenames) - 1)
+        return os.path.join(self.data_path, self.filenames[idx])
+
+    def load_frames(self, index, do_flip):
+        frames = []
+        for i in self.frame_ids:
+            j = min(max(index + (i if i != "s" else 0), 0), len(self.filenames) - 1)
+            frames.append(self._load_resized(None, j, None, do_flip))
+        return frames, None
+
+
+class ETH3DDataset(FolderDataset):
+    K_norm = np.array(
+        [[0.9832, 0, 0.5, 0], [0, 1.736, 0.5, 0], [0, 0, 1, 0], [0, 0, 0, 1]], np.float32)
+
+
+class EuRoCDataset(FolderDataset):
+    # fx/w, fy/h of the EuRoC cam0 calibration
+    K_norm = np.array(
+        [[458.654 / 752, 0, 0.5, 0], [0, 457.296 / 480, 0.5, 0], [0, 0, 1, 0], [0, 0, 0, 1]],
+        np.float32)

@@ -75,9 +75,9 @@ def flagship_bench() -> tuple[ModelConfig, DataConfig, OptimConfig]:
     the last encoder stage split between depth and colour, 16 erased 16x16
     squares per sample.
 
-    The config sets `remat=True`; in the JAX package remat changes no
-    number (`tests/test_remat_equivalence.py`), only memory, and the port
-    runs without it."""
+    It keeps the config's `remat=True`, which the port does not apply yet;
+    in the JAX package remat changes no number
+    (`tests/test_remat_equivalence.py`), only memory."""
     model = canonicalize(
         ModelConfig(
             name="mono_fm_joint_inpaint_disentangle",
@@ -96,6 +96,7 @@ def flagship_bench() -> tuple[ModelConfig, DataConfig, OptimConfig]:
             disentangle_layers=(False, False, False, False, True),
             skip_connection_multiplier=1.0,
             depth_disentangle_type="use_half",
+            remat=True,
         )
     )
     data = DataConfig(batch_size=12, erase_shape=(16, 16), erase_count=16)

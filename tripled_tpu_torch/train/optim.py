@@ -57,6 +57,23 @@ class Adam:
         self.nu = {k: [torch.zeros_like(p) for p in ps] for k, ps in self.groups.items()}
         self.count = 0
 
+    def state_dict(self) -> dict:
+        """The moments by parameter kind and the update count."""
+        return {"count": self.count, "mu": self.mu, "nu": self.nu}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy saved moments into this optimizer's (same kinds, shapes and
+        order), on its own device."""
+        for key in ("mu", "nu"):
+            mine, saved = getattr(self, key), state[key]
+            if set(mine) != set(saved) or any(len(mine[k]) != len(saved[k]) for k in mine):
+                raise ValueError(f"optimizer state does not fit this model ({key})")
+            for k in mine:
+                for dst, src in zip(mine[k], saved[k]):
+                    dst.copy_(src)
+        self.count = int(state["count"])
+
     def _weight_decay(self, kind: str) -> float:
         mult = {"norm": self.cfg.norm_decay_mult, "bias": self.cfg.bias_decay_mult}
         return self.cfg.weight_decay * mult.get(kind, 1.0)
