@@ -8,12 +8,13 @@ Phases, each printed as one JSON line with its wall time:
            all started together
   kernels  each kernel against its plain PyTorch version on the card, with
            CUDA-event times: the photometric kernels at the mono_fm shape
-           (192x640, f32 and bf16), the flagship's (320x1024, f32) and a
-           ragged one; the row-window sum at the probe's shape and at the
-           flagship's photometric candidate slab, beside one conv2d call
+           (192x640, f32 and bf16), the flagship's (320x1024, f32 and bf16)
+           and a ragged one; the row-window sum at the probe's shape and at
+           the flagship's photometric candidate slab, beside one conv2d call
   reference  a small mono_fm step on the card against the same step on the CPU
   reference_flagship  the same for a small flagship step (R18, 64x160,
-           pose net at 32x96, a few erased squares)
+           pose net at 32x96, a few erased squares), in float32 and in
+           bfloat16
   train    mono_fm at full width (R50 depth, R18 pose, frozen R50 extractor,
            192x640, batch 12) from random weights: 1 warm-up step, 3 timed
            steps, the kernels' launch counts over the timed steps
@@ -25,9 +26,18 @@ Phases, each printed as one JSON line with its wall time:
            optimizer)
   flagship  TripleDNet (`presets.flagship_bench()`: R50 depth, R18 pose,
            joint R50 extractor, 320x1024, batch 12, 16 erased 16x16 squares
-           per sample) from random weights: 1 warm-up step, 3 timed steps,
-           every loss term, the kernels' launch counts
+           per sample) from random weights, float32 with remat off: 1
+           warm-up step, 3 timed steps, every loss term, the kernels' launch
+           counts
   profile_flagship  the profile and step split of the flagship step
+  flagship_remat  the same step with remat on, from the same seed, weights,
+           batch and dropout generator: its first step's losses and gradient
+           norm against the flagship's, beside the spread of a second
+           remat-off first step; ms/step, images/s, peak memory
+  flagship_bf16  the same with compute_dtype="bfloat16" and remat on:
+           ms/step, images/s, peak memory, the photometric launches by
+           dtype, each loss term's gap to the float32 first step, and the
+           profile and step split
   train_cli  the train CLI (`tripled_tpu_torch.cli.train.main`) with the
            port's `configs/cfg_kitti_tripled.py`, pointed at a synthetic
            KITTI tree at KITTI's 375x1242 (28 frames: 26 train and val
@@ -36,6 +46,10 @@ Phases, each printed as one JSON line with its wall time:
            the epoch-2 checkpoint, which must give the hook's metrics; the
            CLI's ms/step and the host's wait for batches, beside the bare
            flagship step above, and the loader's ms per batch alone
+  infer    the inference CLIs on train_cli's epoch-2 checkpoint: `cli.infer`
+           on one 375x1242 frame of the tree (its depth map held against the
+           loaded model's prediction), `cli.infer_singleimage --limit 4` and
+           `cli.gather_inference_imgs` with the config twice
   probe    `python -m tripled_tpu_torch.dev.element_probe`'s main() on the card
 Then the kernel summary line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Any failure raises and exits
@@ -162,12 +176,13 @@ FLAGSHIP_SHAPE = (12, 4, 320, 1024, 3)
 
 def check_kernels(photometric, dev, seed):
     """Each photometric kernel against its plain version; returns the timed
-    float32 rows by shape."""
+    rows by (shape, dtype)."""
     gen = torch.Generator(dev).manual_seed(seed)
     tol = {torch.float32: (1e-5, 0.9999, 1e-4), torch.bfloat16: (1e-5, 0.9999, 8e-3)}
     cases = [(MONO_FM_SHAPE, torch.float32, True),
              (MONO_FM_SHAPE, torch.bfloat16, True),
              (FLAGSHIP_SHAPE, torch.float32, True),
+             (FLAGSHIP_SHAPE, torch.bfloat16, True),
              ((2, 3, 37, 53, 3), torch.float32, False)]
     summary = {}
     for shape, dtype, timed in cases:
@@ -226,8 +241,7 @@ def check_kernels(photometric, dev, seed):
                 lambda: photometric.bwd_kernel(target, preds, g, ref_idx, grad_ks, need_t))
             row["fwd_bound"] = fwd_bound(shape, itemsize)
             row["bwd_bound"] = bwd_bound(shape, itemsize, ref_idx, grad_ks, need_t)
-            if dtype == torch.float32:
-                summary[shape] = row
+            summary[shape, dtype] = row
         phase("kernels", t0, **row)
     return summary
 
@@ -269,6 +283,15 @@ def check_probe_kernel(probe, dev, seed):
     return rows
 
 
+# card against CPU, relative: float32 rounding of another summation order;
+# grad_norm also carries the max pools' near-tie routing (seen: losses
+# 2.3e-7, grad_norm 1.2e-5). bfloat16: cuDNN and the CPU round their bf16
+# outputs from sums taken in other orders; the bounds of the port's bf16
+# step against the JAX package's (tests/test_torch_port_bf16.py)
+REFERENCE_TOL = {"float32": {"smooth": 1e-4, "loss": 1e-4, "grad_norm": 1e-4},
+                 "bfloat16": {"smooth": 5e-2, "loss": 5e-3, "grad_norm": 1e-2}}
+
+
 def reference_step(dev, seed, cfg, batch, height, width, **input_kw):
     """A small training step on the card (kernels) and on the CPU (plain
     versions) from the same weights and inputs."""
@@ -285,12 +308,16 @@ def reference_step(dev, seed, cfg, batch, height, width, **input_kw):
         metrics[str(device)] = {k: float(v) for k, v in step(inputs).items()}
     cpu, gpu = metrics["cpu"], metrics[str(dev)]
     rel = {k: abs(gpu[k] - cpu[k]) / max(abs(cpu[k]), 1e-12) for k in cpu}
-    # float32 rounding of another summation order; grad_norm also carries
-    # the max pools' near-tie routing (seen: losses 2.3e-7, grad_norm 1.2e-5)
-    bad = {k: r for k, r in rel.items() if r > 1e-4}
+    tol = REFERENCE_TOL[cfg.compute_dtype]
+    bad = {k: r for k, r in rel.items()
+           if r > tol["grad_norm" if k == "grad_norm" else
+                      "smooth" if k.startswith("smooth_loss") else "loss"]}
     if bad or not all(math.isfinite(v) for v in gpu.values()):
         raise AssertionError(f"card step disagrees with the CPU step: {bad} {metrics}")
-    return {"max_rel_diff_losses": max(r for k, r in rel.items() if k != "grad_norm"),
+    return {"compute_dtype": cfg.compute_dtype, "tolerance": tol,
+            "max_rel_diff_losses": max(r for k, r in rel.items() if k != "grad_norm"),
+            "max_rel_diff_losses_but_smooth": max(
+                r for k, r in rel.items() if k != "grad_norm" and not k.startswith("smooth_loss")),
             "rel_diff_grad_norm": rel["grad_norm"], "keys": sorted(cpu)}
 
 
@@ -407,11 +434,11 @@ FLAGSHIP_LOSS_KEYS = (
     + ["auto_res_loss", "loss", "grad_norm"])
 
 
-def train_path(photometric, dev, seed, model_cfg, data_cfg, optim_cfg):
+def train_path(photometric, dev, seed, model_cfg, data_cfg, optim_cfg, timed=True):
     """The model's training step at full width from random weights: one
-    warm-up step, then STEPS timed steps with the photometric launch counts
-    set to 0 just before and read just after. Returns the state, the step,
-    its batch and dropout generator, and the measurements."""
+    warm-up step, then (if `timed`) STEPS timed steps with the photometric
+    launch counts set to 0 just before and read just after. Returns the
+    state, the step, its batch and dropout generator, and the measurements."""
     from tripled_tpu_torch.train.state import create_train_state
     from tripled_tpu_torch.train.step import make_train_step
     from tripled_tpu_torch.utils.inputs import random_train_inputs
@@ -423,30 +450,37 @@ def train_path(photometric, dev, seed, model_cfg, data_cfg, optim_cfg):
                                 erase_count=data_cfg.erase_count,
                                 erase_shape=data_cfg.erase_shape, device=dev)
     dropout_gen = torch.Generator(dev).manual_seed(seed)
-    metrics = step(batch, dropout_gen)  # warm-up
-    torch.cuda.synchronize()
+    first = {k: float(v) for k, v in step(batch, dropout_gen).items()}  # warm-up
     warm_s = time.perf_counter() - t0
+    if not timed:
+        return state, step, batch, dropout_gen, {"first_step_metrics": first}
 
     torch.cuda.reset_peak_memory_stats(dev)
     for k in photometric.launches:
         photometric.launches[k] = 0
+    photometric.launches_by_dtype.clear()
     t1 = time.perf_counter()
     for _ in range(STEPS):
         metrics = step(batch, dropout_gen)
     metrics = {k: float(v) for k, v in metrics.items()}  # synchronises
     step_s = (time.perf_counter() - t1) / STEPS
     launches = dict(photometric.launches)
+    by_dtype = dict(photometric.launches_by_dtype)
     bad = [k for k, v in metrics.items() if not math.isfinite(v)]
     if bad:
         raise AssertionError(f"non-finite metrics {bad}: {metrics}")
     n_scales = len(model_cfg.scales)
     expected = {"fwd": n_scales * STEPS, "bwd": n_scales * STEPS}
-    if launches != expected:
-        raise AssertionError(f"kernel launches {launches}, expected {expected}")
-    info = {"warmup_step_s": warm_s, "ms_per_step": step_s * 1e3,
+    slab = "bfloat16" if model_cfg.compute_dtype == "bfloat16" else "float32"
+    if launches != expected or by_dtype != {f"{k} {slab}": v for k, v in expected.items()}:
+        raise AssertionError(f"kernel launches {launches} ({by_dtype}), expected {expected} "
+                             f"with {slab} slabs")
+    info = {"remat": model_cfg.remat, "compute_dtype": model_cfg.compute_dtype,
+            "warmup_step_s": warm_s, "ms_per_step": step_s * 1e3,
             "images_per_s": data_cfg.batch_size / step_s,
             "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
-            "launches": launches, "metrics": metrics}
+            "launches": launches, "launches_by_dtype": by_dtype, "first_step_metrics": first,
+            "metrics": metrics}
     return state, step, batch, dropout_gen, info
 
 
@@ -470,7 +504,8 @@ config = dataclasses.replace(
 def train_cli_path(photometric, dev, seed, tmp):
     """The train CLI on the flagship config, as a user runs it, on a
     synthetic tree under `tmp`: 1 epoch, then a resumed 2nd, then the eval
-    CLI. Only what points at the data and the run's length is changed."""
+    CLI. Only what points at the data and the run's length is changed.
+    Returns the measurements, and the tree, config and work dir."""
     from tripled_tpu_torch.cli import eval_depth, train
     from tripled_tpu_torch.config import load_config
     from tripled_tpu_torch.data.get_dataset import get_dataset
@@ -579,9 +614,11 @@ def train_cli_path(photometric, dev, seed, tmp):
                if epoch_of(a) == epoch_of(b)]
     ms = sum(step_ms) / len(step_ms)
     waits = [r["epoch/loader_wait_s"] for r in epoch_rows]
-    return {"config": "tripled_tpu_torch/configs/cfg_kitti_tripled.py (R50/R18/R50 320x1024 "
-            "batch 12 f32, 16 erased 16x16 squares per sample); data, split, epochs, work dir "
-            "and log interval replaced",
+    paths = {"tree": tree, "config": configs[2], "work": work}
+    return paths, {
+            "config": "tripled_tpu_torch/configs/cfg_kitti_tripled.py (R50/R18/R50 320x1024 "
+            "batch 12 f32, 16 erased 16x16 squares per sample, remat on); data, split, "
+            "epochs, work dir and log interval replaced", "remat": cfg.model.remat,
             "tree": {"frames": tree["num_frames"], "height": tree["height"],
                      "width": tree["width"], "seconds": tree_s},
             "steps": n_steps, "run_seconds": [run1_s, run2_s], "eval_cli_seconds": eval_s,
@@ -599,6 +636,147 @@ def train_cli_path(photometric, dev, seed, tmp):
             "metrics_epoch_2": {k: hook[k] for k in METRIC_NAMES},
             "peak_memory_gib": peak_gib, "launches": launches,
             "launches_per_step": {k: v / n_steps for k, v in launches.items()}}
+
+
+def infer_path(dev, tmp, paths):
+    """The three inference CLIs on the train CLI's epoch-2 checkpoint, on
+    the config and tree it trained on."""
+    import numpy as np
+    from PIL import Image
+
+    from tripled_tpu_torch.cli import gather_inference_imgs, infer, infer_singleimage
+    from tripled_tpu_torch.config import load_config
+
+    ckpt = os.path.join(paths["work"], "ckpt", "epoch_2")
+    cfg = paths["config"]
+    model = load_config(cfg).model
+    height, width = model.height, model.width
+    image_dir = os.path.join(paths["tree"]["root"], paths["tree"]["scene"], "image_02", "data")
+    frame = os.path.join(image_dir, sorted(os.listdir(image_dir))[0])
+    out = {name: os.path.join(tmp, name) for name in ("infer", "single", "grids")}
+    seconds = {}
+    previous = os.environ.get("TRIPLED_SPLITS_DIR")
+    os.environ["TRIPLED_SPLITS_DIR"] = paths["tree"]["splits_dir"]
+    try:
+        t0 = time.perf_counter()
+        depth = infer.main(["--config", cfg, "--checkpoint", ckpt, "--image", frame,
+                            "--out_dir", out["infer"], "--height", str(height),
+                            "--width", str(width), "--device", str(dev)])
+        seconds["infer"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n_single = infer_singleimage.main(["--config", cfg, "--checkpoint", ckpt, "--limit", "4",
+                                           "--out_dir", out["single"], "--device", str(dev)])
+        seconds["infer_singleimage"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n_grids = gather_inference_imgs.main(["--configs", cfg, cfg, "--checkpoints", ckpt, ckpt,
+                                              "--limit", "4", "--out_dir", out["grids"],
+                                              "--device", str(dev)])
+        seconds["gather_inference_imgs"] = time.perf_counter() - t0
+    finally:
+        if previous is None:
+            os.environ.pop("TRIPLED_SPLITS_DIR")
+        else:
+            os.environ["TRIPLED_SPLITS_DIR"] = previous
+
+    # the depth map: STEREO_SCALE_FACTOR over the loaded model's prediction
+    # at the config's size, resized to the frame as the CLI resizes it
+    stem = os.path.splitext(os.path.basename(frame))[0]
+    saved = np.load(os.path.join(out["infer"], f"{stem}_depth.npy"))
+    img = Image.open(frame).convert("RGB")
+    _, _, predict = infer.load_depth_model(cfg, ckpt, dev)
+    x = np.asarray(img.resize((width, height), Image.BILINEAR), np.float32) / 255.0
+    disp = infer.predict_disp(predict, x, dev)
+    want = infer.STEREO_SCALE_FACTOR / np.asarray(
+        Image.fromarray(disp).resize(img.size, Image.BILINEAR))
+    rel = float(np.abs(saved / want - 1).max())
+    if (saved.shape != (img.size[1], img.size[0]) or not np.isfinite(saved).all()
+            or not (saved > 0).all() or rel > 1e-6 or not np.array_equal(saved, depth)):
+        raise AssertionError(f"cli.infer's depth {saved.shape}, max rel gap {rel} to the "
+                             f"loaded model's prediction")
+    disp_png = np.asarray(Image.open(os.path.join(out["infer"], f"{stem}_disp.png")))
+    singles = sorted(os.listdir(out["single"]))
+    want_singles = sorted(f"{i:05d}_{k}.png" for i in range(4) for k in ("disp", "img"))
+    grids = sorted(os.listdir(out["grids"]))
+    grid_shape = np.asarray(Image.open(os.path.join(out["grids"], grids[0]))).shape
+    if (n_single != 4 or singles != want_singles or n_grids != 4 or len(grids) != 4
+            or grid_shape != (2 * height, 2 * width, 3) or disp_png.shape[:2] != saved.shape):
+        raise AssertionError(f"inference outputs: {singles} {grids} {grid_shape} "
+                             f"{disp_png.shape}")
+    return {"checkpoint": "train_cli's ckpt/epoch_2", "frame": list(saved.shape),
+            "depth_m": [float(saved.min()), float(saved.max())],
+            "depth_max_rel_gap_to_predict": rel, "disp_png": list(disp_png.shape),
+            "singleimage_files": len(singles), "grids": len(grids),
+            "grid_shape": list(grid_shape), "cli_seconds": seconds}
+
+
+def flagship_phases(photometric, dev, seed, card, model_cfg, data_cfg, optim_cfg):
+    """Phases flagship, profile_flagship, flagship_remat and flagship_bf16;
+    returns the photometric launches by path and the f32 ms/step."""
+    # the flagship as the earlier measurements ran it: float32, remat off
+    t0 = time.perf_counter()
+    flagship_f32 = dataclasses.replace(model_cfg, remat=False)
+    state, step, batch, gen, info = train_path(photometric, dev, seed, flagship_f32,
+                                               data_cfg, optim_cfg)
+    launches_by_path = {"flagship": info["launches"]}
+    flagship_ms = info["ms_per_step"]
+    first_f32 = info["first_step_metrics"]
+    if list(info["metrics"]) != FLAGSHIP_LOSS_KEYS:
+        raise AssertionError(f"flagship metrics {list(info['metrics'])}, "
+                             f"expected {FLAGSHIP_LOSS_KEYS}")
+    phase("flagship", t0, config="mono_fm_joint_inpaint_disentangle R50/R18/R50 320x1024 "
+          "batch 12 f32 remat off, 16 erased 16x16 squares per sample", card=card, **info)
+
+    t0 = time.perf_counter()
+    phase("profile_flagship", t0, card=card, **profile_step(step, batch, gen),
+          step_split_ms=split_step(step, state.model, batch, gen))
+    del state, step, batch, gen
+    torch.cuda.empty_cache()
+
+    # remat on: the same first step. The spread is that of a second remat-off
+    # first step; 1e-6 relative stands for float32 sums in another order
+    t0 = time.perf_counter()
+    state, step, batch, gen, info = train_path(photometric, dev, seed, flagship_f32,
+                                               data_cfg, optim_cfg, timed=False)
+    spread = {k: abs(v - first_f32[k]) for k, v in info["first_step_metrics"].items()}
+    del state, step, batch, gen
+    torch.cuda.empty_cache()
+    flagship_remat = dataclasses.replace(model_cfg, remat=True)
+    state, step, batch, gen, info = train_path(photometric, dev, seed, flagship_remat,
+                                               data_cfg, optim_cfg)
+    launches_by_path["flagship_remat"] = info["launches"]
+    gap = {k: abs(v - first_f32[k]) for k, v in info["first_step_metrics"].items()}
+    allowed = {k: max(spread[k], 1e-6 * abs(first_f32[k])) for k in gap}
+    bad = {k: (gap[k], allowed[k]) for k in gap if gap[k] > allowed[k]}
+    if bad:
+        raise AssertionError(f"remat changed the first step beyond the card's spread: {bad}")
+    phase("flagship_remat", t0, config="the flagship, f32, remat on", card=card,
+          first_step_abs_gap_to_flagship=gap, run_to_run_spread=spread,
+          first_step_max_rel_gap=max(gap[k] / max(abs(first_f32[k]), 1e-30) for k in gap),
+          remat_off_ms_per_step=flagship_ms, **info)
+    del state, step, batch, gen
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    flagship_bf16 = dataclasses.replace(model_cfg, remat=True, compute_dtype="bfloat16")
+    state, step, batch, gen, info = train_path(photometric, dev, seed, flagship_bf16,
+                                               data_cfg, optim_cfg)
+    launches_by_path["flagship_bf16"] = info["launches"]
+    rel_gap = {k: abs(v - first_f32[k]) / max(abs(first_f32[k]), 1e-30)
+               for k, v in info["first_step_metrics"].items()}
+    # the JAX package's own bound for its bf16 loss against its f32 loss
+    # (tests/test_bf16.py:75)
+    if rel_gap["loss"] > 5e-2:
+        raise AssertionError(f"bf16 loss {rel_gap['loss']} from the f32 loss")
+    profile = profile_step(step, batch, gen)
+    profile["convolution_share_of_kernel_ms"] = sum(
+        ms for fam, ms in profile["by_family_ms"].items() if fam.startswith("convolution")
+    ) / profile["kernel_ms_per_step"]
+    phase("flagship_bf16", t0, config="the flagship, compute_dtype bfloat16, remat on",
+          card=card, first_step_rel_gap_to_f32=rel_gap, profile=profile,
+          step_split_ms=split_step(step, state.model, batch, gen), **info)
+    del state, step, batch, gen
+    torch.cuda.empty_cache()
+    return launches_by_path, flagship_ms
 
 
 def main():
@@ -665,8 +843,9 @@ def main():
     flagship_cfg, flagship_data, flagship_optim = flagship_bench()
     small_flagship = dataclasses.replace(flagship_cfg, height=64, width=160, pose_height=32,
                                          pose_width=96, **small)
-    phase("reference_flagship", t0, **reference_step(
-        dev, args.seed, small_flagship, 2, 64, 160, erase_count=4, erase_shape=(8, 8)))
+    phase("reference_flagship", t0, **{dtype: reference_step(
+        dev, args.seed, dataclasses.replace(small_flagship, compute_dtype=dtype), 2, 64, 160,
+        erase_count=4, erase_shape=(8, 8)) for dtype in ("float32", "bfloat16")})
 
     t0 = time.perf_counter()
     model_cfg, data_cfg, optim_cfg = mono_fm_bench()
@@ -689,28 +868,18 @@ def main():
     del state, step, batch, gen, disp
     torch.cuda.empty_cache()
 
-    t0 = time.perf_counter()
-    state, step, batch, gen, info = train_path(photometric, dev, args.seed, flagship_cfg,
-                                               flagship_data, flagship_optim)
-    flagship_launches = info["launches"]
-    flagship_ms = info["ms_per_step"]
-    if list(info["metrics"]) != FLAGSHIP_LOSS_KEYS:
-        raise AssertionError(f"flagship metrics {list(info['metrics'])}, "
-                             f"expected {FLAGSHIP_LOSS_KEYS}")
-    phase("flagship", t0, config="mono_fm_joint_inpaint_disentangle R50/R18/R50 320x1024 "
-          "batch 12 f32, 16 erased 16x16 squares per sample", card=card, **info)
+    launches_by_path, flagship_ms = flagship_phases(photometric, dev, args.seed, card,
+                                                    flagship_cfg, flagship_data, flagship_optim)
+    launches_by_path = {"train": train_launches, **launches_by_path}
 
-    t0 = time.perf_counter()
-    phase("profile_flagship", t0, card=card, **profile_step(step, batch, gen),
-          step_split_ms=split_step(step, state.model, batch, gen))
-    del state, step, batch, gen
-    torch.cuda.empty_cache()
-
-    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="train_cli_") as tmp:
-        cli = train_cli_path(photometric, dev, args.seed, tmp)
-    cli_launches = cli["launches"]
-    phase("train_cli", t0, card=card, bare_flagship_ms_per_step=flagship_ms, **cli)
+        t0 = time.perf_counter()
+        paths, cli = train_cli_path(photometric, dev, args.seed, tmp)
+        cli_launches = cli["launches"]
+        launches_by_path["train_cli"] = cli_launches
+        phase("train_cli", t0, card=card, bare_flagship_ms_per_step=flagship_ms, **cli)
+        t0 = time.perf_counter()
+        phase("infer", t0, card=card, **infer_path(dev, tmp, paths))
 
     t0 = time.perf_counter()
     for k in probe.launches:
@@ -723,10 +892,11 @@ def main():
     phase("probe", t0, max_abs_err=probe_err, launches=probe_launches)
 
     source = "tripled_tpu_torch/csrc/photometric.cu"
-    flag = kern[FLAGSHIP_SHAPE]
+    flag = kern[FLAGSHIP_SHAPE, torch.float32]
     by_shape = {direction: [
-        {"shape": list(shape), "ms": row[f"{direction}_ms"], "plain_ms": row[f"{direction}_plain_ms"],
-         "bound_ms": row[f"{direction}_bound"]["bound_ms"]} for shape, row in kern.items()]
+        {"shape": list(shape), "dtype": row["dtype"], "ms": row[f"{direction}_ms"],
+         "plain_ms": row[f"{direction}_plain_ms"],
+         "bound_ms": row[f"{direction}_bound"]["bound_ms"]} for (shape, _), row in kern.items()]
         for direction in ("fwd", "bwd")}
     slab = probe_rows[-1]
     kernels = [
@@ -734,8 +904,7 @@ def main():
          "replaces": "tripled_tpu/ops/pallas/photometric.py:200",
          "launches": cli_launches["fwd"],
          "kernel_launches_per_call": len(flag["fwd_device_ops"]),
-         "launches_by_path": {"train": train_launches["fwd"], "flagship": flagship_launches["fwd"],
-                              "train_cli": cli_launches["fwd"]},
+         "launches_by_path": {p: n["fwd"] for p, n in launches_by_path.items()},
          "max_abs_err": max(r["fwd_max_abs_err"] for r in kern.values()),
          "shape": list(FLAGSHIP_SHAPE), "ms": flag["fwd_ms"], "plain_ms": flag["fwd_plain_ms"],
          "bound_ms": flag["fwd_bound"]["bound_ms"], "bound_by": flag["fwd_bound"]["bound_by"],
@@ -744,8 +913,7 @@ def main():
          "replaces": "tripled_tpu/ops/pallas/photometric.py:263",
          "launches": cli_launches["bwd"],
          "kernel_launches_per_call": len(flag["bwd_device_ops"]),
-         "launches_by_path": {"train": train_launches["bwd"], "flagship": flagship_launches["bwd"],
-                              "train_cli": cli_launches["bwd"]},
+         "launches_by_path": {p: n["bwd"] for p, n in launches_by_path.items()},
          "max_abs_err": max(r["bwd_pruned_max_abs_err"] for r in kern.values()),
          "shape": list(FLAGSHIP_SHAPE), "ms": flag["bwd_ms"], "plain_ms": flag["bwd_plain_ms"],
          "bound_ms": flag["bwd_bound"]["bound_ms"], "bound_by": flag["bwd_bound"]["bound_by"],

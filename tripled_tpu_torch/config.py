@@ -60,11 +60,20 @@ class ModelConfig:
     # dropout on the two deepest skips of the CRP DepthDecoder; 0.0 for
     # deterministic parity runs
     depth_dropout_rate: float = 0.5
-    # rematerialise encoder activations in the backward pass; the port runs
-    # without it for now (the training loop warns)
+    # recompute the encoders' and the depth, image and colour decoders'
+    # activations in the backward instead of keeping them (less memory, more
+    # arithmetic, the same numbers)
     remat: bool = False
+    # "bfloat16": mixed precision. The networks fed bf16 inputs compute in
+    # bf16 on bf16-rounded parameters; warps, geometry, the losses'
+    # reductions, BatchNorm statistics, master parameters and Adam's moments
+    # stay float32 (`models/net.py` `_cd`/`_f32`, `train/step.py`)
+    compute_dtype: str = "float32"
 
     def __post_init__(self):
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype must be 'float32' or 'bfloat16', "
+                             f"got {self.compute_dtype!r}")
         later = "a later slice of the port"
         if self.depth_skip_type is not None:
             raise ValueError(f"depth_skip_type={self.depth_skip_type!r} waits for {later}")

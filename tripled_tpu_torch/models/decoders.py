@@ -6,7 +6,8 @@ on iconv4..iconv1. `ColorDecoder`: the same trunk, plus each scale's
 disparity added to its iconv (`iconv + resize(disp) * multiplier`) and
 optional additive skips from the encoder stages. Both return images
 [scale0, scale1, scale2, scale3], scale 0 at the input resolution, each
-(B, out_channels, h, w)."""
+(B, out_channels, h, w). With `remat`, a decoder's activations are
+recomputed in the backward."""
 
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
-from tripled_tpu_torch.models.layers import Conv3x3, ConvBlock
+from tripled_tpu_torch.models.layers import Conv3x3, ConvBlock, remat
 from tripled_tpu_torch.ops.image import resize_bilinear, upsample2x_nearest
 
 DEC_CH = (16, 32, 64, 128, 256)
@@ -25,8 +26,9 @@ class _Trunk(nn.Module):
     """Per level 4..0: `upconvs[i]` (ConvBlock, then 2x upsample) and
     `iconvs[i]` (ConvBlock)."""
 
-    def __init__(self, in_channels: int):
+    def __init__(self, in_channels: int, remat: bool = False):
         super().__init__()
+        self.remat = remat
         ins = (in_channels,) + DEC_CH[:0:-1]  # 4 -> 0: in, 256, 128, 64, 32
         outs = DEC_CH[::-1]
         self.upconvs = nn.ModuleList(ConvBlock(i, o) for i, o in zip(ins, outs))
@@ -34,13 +36,15 @@ class _Trunk(nn.Module):
 
 
 class ImageDecoder(_Trunk):
-    def __init__(self, in_channels: int, num_output_channels: int = 3):
-        super().__init__(in_channels)
+    def __init__(self, in_channels: int, num_output_channels: int = 3, remat: bool = False):
+        super().__init__(in_channels, remat)
         # heads on iconv4..iconv1, i.e. scales 3..0
         self.heads = nn.ModuleList(Conv3x3(c, num_output_channels) for c in DEC_CH[3::-1])
 
     def forward(self, features):
-        x = features[4]
+        return remat(self._decode, features[4], enabled=self.remat)
+
+    def _decode(self, x):
         iconvs = []
         for up, iconv in zip(self.upconvs, self.iconvs):
             x = iconv(upsample2x_nearest(up(x)))
@@ -52,8 +56,9 @@ class ImageDecoder(_Trunk):
 class ColorDecoder(_Trunk):
     def __init__(self, num_ch_enc: Sequence[int], num_output_channels: int = 3,
                  skip_connection_multiplier: float = 1.0,
-                 skip_layers: Sequence[bool] = (False, False, False, False)):
-        super().__init__(num_ch_enc[4])
+                 skip_layers: Sequence[bool] = (False, False, False, False),
+                 remat: bool = False):
+        super().__init__(num_ch_enc[4], remat)
         self.multiplier = skip_connection_multiplier
         # skips[j] adds encoder stage 3 - j to level 3 - j's upsampled input
         self.skips = nn.ModuleList(
@@ -66,6 +71,9 @@ class ColorDecoder(_Trunk):
     def forward(self, features, disps):
         """features: the 5-stage pyramid (NCHW); disps: [s0, s1, s2, s3],
         each (B, 1, h, w)."""
+        return remat(self._decode, features, disps, enabled=self.remat)
+
+    def _decode(self, features, disps):
         x = features[4]
         iconvs = []
         for level, (up, iconv) in enumerate(zip(self.upconvs, self.iconvs)):

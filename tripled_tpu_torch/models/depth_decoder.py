@@ -4,7 +4,8 @@ Per level: 1x1 reduce, 3x3 iconv over cat(reduce, up(prev), prev_disp),
 leaky ReLU, CRP x4, 3x3 merge, leaky ReLU, 2x nearest upsample, sigmoid
 disparity head. Dropout on the two deepest encoder stages in training.
 Returns disparities [scale0, scale1, scale2, scale3] at 1/2 .. 1/16 of the
-input resolution, each (B, 1, h, w)."""
+input resolution, each (B, 1, h, w). With `remat`, the levels' activations
+are recomputed in the backward; the dropout masks are drawn before, once."""
 
 from __future__ import annotations
 
@@ -14,14 +15,16 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tripled_tpu_torch.models.layers import CRPBlock, Conv1x1, Conv3x3
+from tripled_tpu_torch.models.layers import CRPBlock, Conv1x1, Conv3x3, remat
 from tripled_tpu_torch.ops.image import upsample2x_nearest
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
-    """Inverted dropout drawn from `generator` (keep with prob 1 - rate)."""
+    """Inverted dropout drawn from `generator` (keep with prob 1 - rate).
+    The uniform is float32 whatever x's dtype: bf16's 8-bit mantissa would
+    shift the keep probability."""
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype) < keep
+    mask = torch.rand(x.shape, generator=generator, device=x.device, dtype=torch.float32) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -47,9 +50,10 @@ class _Level(nn.Module):
 
 class DepthDecoder(nn.Module):
     def __init__(self, num_ch_enc: Sequence[int], bottleneck: int = 256,
-                 dropout_rate: float = 0.5):
+                 dropout_rate: float = 0.5, remat: bool = False):
         super().__init__()
         self.dropout_rate = dropout_rate
+        self.remat = remat
         bn = bottleneck
         # levels run from the deepest stage (4) up to stage 1
         self.levels = nn.ModuleList([
@@ -62,8 +66,12 @@ class DepthDecoder(nn.Module):
     def forward(self, features, generator: torch.Generator | None = None):
         _, l1, l2, l3, l4 = features
         if self.training and self.dropout_rate > 0:
+            # outside the recomputed part: a recompute must not draw again
             l4 = dropout(l4, self.dropout_rate, generator)
             l3 = dropout(l3, self.dropout_rate, generator)
+        return remat(self._decode, l1, l2, l3, l4, enabled=self.remat)
+
+    def _decode(self, l1, l2, l3, l4):
         x, disp = self.levels[0](l4)
         disps = [disp]
         for level, feat in zip(self.levels[1:], (l3, l2, l1)):

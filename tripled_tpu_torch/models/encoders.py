@@ -1,7 +1,9 @@
 """Depth, pose and extractor encoders (`tripled_tpu/models/encoders.py`).
 
 They take NCHW images in [0, 1]. The depth and pose encoders normalise as
-(x - 0.45) / 0.225; the extractor takes its input as it is."""
+(x - 0.45) / 0.225, in the input's dtype; the extractor takes its input as
+it is. With `remat`, each recomputes its ResNet's activations in the
+backward, as `tripled_tpu/models/encoders.py:23-29` wraps it in nn.remat."""
 
 from __future__ import annotations
 
@@ -15,10 +17,10 @@ def _norm(x):
 
 
 class DepthEncoder(nn.Module):
-    def __init__(self, num_layers: int = 18):
+    def __init__(self, num_layers: int = 18, remat: bool = False):
         super().__init__()
         self.num_ch_enc = stage_channels(num_layers)
-        self.encoder = ResNetFeatures(num_layers)
+        self.encoder = ResNetFeatures(num_layers, remat=remat)
 
     def forward(self, x):
         return self.encoder(_norm(x))
@@ -27,10 +29,10 @@ class DepthEncoder(nn.Module):
 class PoseEncoder(nn.Module):
     """ResNet over `num_input_images` channel-concatenated frames."""
 
-    def __init__(self, num_layers: int = 18, num_input_images: int = 2):
+    def __init__(self, num_layers: int = 18, num_input_images: int = 2, remat: bool = False):
         super().__init__()
         self.num_ch_enc = stage_channels(num_layers)
-        self.encoder = ResNetFeatures(num_layers, in_channels=3 * num_input_images)
+        self.encoder = ResNetFeatures(num_layers, in_channels=3 * num_input_images, remat=remat)
 
     def forward(self, x):
         return self.encoder(_norm(x))
@@ -39,10 +41,10 @@ class PoseEncoder(nn.Module):
 class Extractor(nn.Module):
     """The feature-metric extractor; unnormalised [0, 1] input."""
 
-    def __init__(self, num_layers: int = 50):
+    def __init__(self, num_layers: int = 50, remat: bool = False):
         super().__init__()
         self.num_ch_enc = stage_channels(num_layers)
-        self.encoder = ResNetFeatures(num_layers)
+        self.encoder = ResNetFeatures(num_layers, remat=remat)
 
     def forward(self, x, graph_stages: int = 5):
         return self.encoder(x, graph_stages)

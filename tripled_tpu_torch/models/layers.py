@@ -1,31 +1,103 @@
-"""Shared blocks (`tripled_tpu/models/layers.py`), NCHW.
+"""Shared blocks (`tripled_tpu/models/layers.py`), NCHW, and the
+activation recomputation (`remat`) the encoders and decoders use.
 
 Convolutions outside the ResNets keep PyTorch's default Conv2d init,
 U(+-1/sqrt(fan_in)) for kernel and bias, which is what the JAX package's
-`torch_conv_kernel` / `torch_conv_bias` reproduce."""
+`torch_conv_kernel` / `torch_conv_bias` reproduce.
+
+Dtypes follow flax's promotion: a convolution computes in the wider of
+its input's and its parameters' dtypes, so bf16-rounded parameters meeting
+a float32 input compute in float32, and float32 parameters meeting a bf16
+input too. BatchNorm computes in float32 and returns its input's dtype."""
 
 from __future__ import annotations
+
+import threading
+from contextlib import contextmanager, nullcontext
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+_state = threading.local()
+
+
+def recomputing() -> bool:
+    """True while `remat` recomputes a forward inside the backward."""
+    return getattr(_state, "recomputing", False)
+
+
+@contextmanager
+def _recompute_context():
+    # the backward may run on another thread (the autograd engine's device
+    # thread), so the flag is that thread's own
+    _state.recomputing = True
+    try:
+        yield
+    finally:
+        _state.recomputing = False
+
+
+def _contexts():
+    return nullcontext(), _recompute_context()
+
+
+def remat(fn, *args, enabled: bool = True):
+    """`fn(*args)`; with `enabled`, while autograd records, its activations
+    are dropped after the forward and recomputed in the backward
+    (`torch.utils.checkpoint`, non-reentrant). The recompute runs with
+    `recomputing()` true, so that BatchNorm leaves its running statistics
+    alone. `fn` must draw no random numbers from an explicit generator:
+    the recompute would draw them anew."""
+    if not (enabled and torch.is_grad_enabled()):
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=_contexts)
 
 
 def reflect_pad(x: torch.Tensor, p: int) -> torch.Tensor:
     return F.pad(x, (p, p, p, p), mode="reflect")
 
 
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d that computes in the wider of its input's and its
+    parameters' dtypes."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = torch.promote_types(x.dtype, self.weight.dtype)
+        bias = None if self.bias is None else self.bias.to(dtype)
+        return self._conv_forward(x.to(dtype), self.weight.to(dtype), bias)
+
+
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm2d (momentum 0.1, eps 1e-5) whose running variance takes
     the biased batch variance, as flax's BatchNorm does; PyTorch's own
     update uses the unbiased one. The correction is exact algebra on the
-    per-channel vectors: no second pass over the activations."""
+    per-channel vectors: no second pass over the activations.
+
+    As flax's: statistics and arithmetic in float32 with the scale and bias
+    as given (bf16-rounded under mixed precision), running statistics in
+    float32, the output in the input's dtype. In a `remat` recompute it
+    normalises with the batch statistics, as the forward did, and leaves the
+    running statistics and the batch count alone: the forward moved them."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # float32 at least (float64 stays float64)
+        dtype = torch.promote_types(torch.promote_types(x.dtype, self.weight.dtype), torch.float32)
+        weight, bias = self.weight.to(dtype), self.bias.to(dtype)
         if not self.training:
-            return super().forward(x)
+            return F.batch_norm(x, self.running_mean, self.running_var, weight, bias, False,
+                                0.0, self.eps)
+        if recomputing():
+            # throwaway copies take the update: the output is the same, and
+            # autograd saves tensors of the same shapes as in the forward,
+            # which checkpoint's recompute check compares
+            return F.batch_norm(x, self.running_mean.clone(), self.running_var.clone(), weight,
+                                bias, True, self.momentum, self.eps)
+        self.num_batches_tracked.add_(1)
         old = self.running_var.detach().clone()
-        y = super().forward(x)
+        y = F.batch_norm(x, self.running_mean, self.running_var, weight, bias, True,
+                         self.momentum, self.eps)
         n = x.numel() // x.shape[1]
         # torch wrote (1-m)*old + m*n/(n-1)*var; keep (1-m)*old + m*var.
         # Through .data: autograd has the buffer recorded as an input of
@@ -37,7 +109,7 @@ class BatchNorm(nn.BatchNorm2d):
         return y
 
 
-class Conv1x1(nn.Conv2d):
+class Conv1x1(Conv2d):
     def __init__(self, in_channels: int, out_channels: int, bias: bool = False):
         super().__init__(in_channels, out_channels, 1, bias=bias)
 
@@ -47,7 +119,7 @@ class Conv3x3(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, out_channels, 3)
+        self.conv = Conv2d(in_channels, out_channels, 3)
 
     def forward(self, x):
         return self.conv(reflect_pad(x, 1))

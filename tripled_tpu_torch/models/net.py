@@ -11,6 +11,16 @@ In training mode the forward returns (outputs, loss_dict) with scalar
 losses; in eval mode, the 4-scale disparity list [s0..s3], each
 (B, h, w, 1). The networks run NCHW; the losses take NHWC views, as the
 JAX functions they mirror do.
+
+Mixed precision (`compute_dtype="bfloat16"`) casts where the JAX package
+casts (`tripled_tpu/models/net.py` `_cd`/`_f32`) and nowhere else: the
+depth encoder's and the extractor's target input, the colour decoder's
+disparities, the feature-loss operands and the photometric slabs go to
+bf16; disparities, decoded images and features come back as float32.
+Networks fed float32 (the pose networks, the extractor on the source
+frames) compute in float32 on the bf16-rounded parameters, as flax
+promotes (`models/layers.py`). The parameters are cast by the training
+step (`train/step.py`); eval-mode prediction keeps them float32.
 """
 
 from __future__ import annotations
@@ -59,36 +69,53 @@ class TripleDNet(nn.Module):
         super().__init__()
         cfg = canonicalize(cfg)
         self.cfg = cfg
-        self.depth_encoder = DepthEncoder(cfg.depth_num_layers)
+        self.depth_encoder = DepthEncoder(cfg.depth_num_layers, remat=cfg.remat)
         enc_ch = self.depth_encoder.num_ch_enc
         # a disentangled stage gives its left channel half to the depth
         # decoder and its right half to the colour decoder
         depth_ch = [ch // 2 if flag else ch for ch, flag in zip(enc_ch, cfg.disentangle_layers)]
-        self.depth_decoder = DepthDecoder(depth_ch, dropout_rate=cfg.depth_dropout_rate)
-        self.pose_encoder = PoseEncoder(cfg.pose_num_layers, 2)
+        self.depth_decoder = DepthDecoder(depth_ch, dropout_rate=cfg.depth_dropout_rate,
+                                          remat=cfg.remat)
+        self.pose_encoder = PoseEncoder(cfg.pose_num_layers, 2, remat=cfg.remat)
         self.pose_decoder = PoseDecoder(self.pose_encoder.num_ch_enc[-1])
         if cfg.use_extractor:
-            self.extractor = Extractor(cfg.extractor_num_layers)
+            self.extractor = Extractor(cfg.extractor_num_layers, remat=cfg.remat)
             if cfg.freeze_extractor:
                 self.extractor.requires_grad_(False)
         if cfg.use_image_decoder:
-            self.image_decoder = ImageDecoder(self.extractor.num_ch_enc[4], 3)
+            self.image_decoder = ImageDecoder(self.extractor.num_ch_enc[4], 3, remat=cfg.remat)
         if any(cfg.disentangle_layers) and cfg.auto_res_weight > 0:
             color_ch = [ch - ch // 2 if flag else ch
                         for ch, flag in zip(enc_ch, cfg.disentangle_layers)]
             self.color_decoder = ColorDecoder(
                 color_ch, 3, skip_connection_multiplier=cfg.skip_connection_multiplier,
-                skip_layers=cfg.color_skip_layers)
+                skip_layers=cfg.color_skip_layers, remat=cfg.remat)
+
+    # ----------------------------------------------------------- precision
+
+    def _cd(self, x):
+        """x (a tensor or a list) in the compute dtype."""
+        if self.cfg.compute_dtype != "bfloat16":
+            return x
+        if isinstance(x, list):
+            return [self._cd(t) for t in x]
+        return x.to(torch.bfloat16) if x.is_floating_point() else x
+
+    def _f32(self, x):
+        """x (a tensor or a list) with bf16 back in float32."""
+        if isinstance(x, list):
+            return [self._f32(t) for t in x]
+        return x.float() if x.dtype == torch.bfloat16 else x
 
     # ------------------------------------------------------------- forward
 
     def forward(self, inputs: Dict[str, torch.Tensor], generator: torch.Generator | None = None):
         """`generator` draws the decoder's dropout in training."""
         c = self.cfg
-        scene = self.depth_encoder(_nchw(inputs["color_aug"][:, 0]))
+        scene = self.depth_encoder(_nchw(self._cd(inputs["color_aug"][:, 0])))
         depth_emb = [identity_partial(f) if flag else f
                      for f, flag in zip(scene, c.disentangle_layers)]
-        disps_nchw = self.depth_decoder(depth_emb, generator)
+        disps_nchw = self._f32(self.depth_decoder(depth_emb, generator))
         disps = [_nhwc(d) for d in disps_nchw]
         if not self.training:
             return disps
@@ -97,7 +124,8 @@ class TripleDNet(nn.Module):
         if hasattr(self, "color_decoder"):
             color_emb = [identity_partial(f, use_right=True) if flag else f
                          for f, flag in zip(scene, c.disentangle_layers)]
-            outputs["auto_res"] = [_nhwc(x) for x in self.color_decoder(color_emb, disps_nchw)]
+            outputs["auto_res"] = [_nhwc(x) for x in self._f32(
+                self.color_decoder(color_emb, self._cd(disps_nchw)))]
         outputs["cam_T_cam"] = self._predict_poses(inputs)
 
         features = None
@@ -108,9 +136,10 @@ class TripleDNet(nn.Module):
             ext_in = inputs["color"][:, 0]
             if c.inpaint and "disentangle" not in c.name and "mask" in inputs:
                 ext_in = ext_in * inputs["mask"]
-            features = self._extract(ext_in)
+            features = self._extract(self._cd(ext_in))
             if c.use_image_decoder and c.img_reconstruct_weight != 0:
-                outputs["res_imgs"] = [_nhwc(x) for x in self.image_decoder(features)]
+                outputs["res_imgs"] = [_nhwc(x) for x in self._f32(self.image_decoder(features))]
+            features = self._f32(features)
 
         return outputs, self._compute_losses(inputs, outputs, features)
 
@@ -168,9 +197,10 @@ class TripleDNet(nn.Module):
         feats = []
         for i in range(1, c.num_frames):
             coords = warp_coords(depth, inv_K2, K2, outputs["cam_T_cam"][i])
-            # only stage 0 reaches the loss
+            # only stage 0 reaches the loss; the float32 frame computes in
+            # float32, and the features are warped from their bf16 rounding
             src_f = _nhwc(self._extract(inputs["color"][:, i], stages=1)[0])
-            feats.append(grid_sample(src_f, coords))
+            feats.append(grid_sample(self._cd(src_f), coords))
         return feats
 
     # -------------------------------------------------------------- losses
@@ -185,10 +215,11 @@ class TripleDNet(nn.Module):
         if features is not None and c.joint_extractor:
             for i, f in enumerate(features):
                 loss_dict[f"feature_regularization_loss/{i}"] = (
-                    feature_regularization_loss(_nhwc(f), target, c.dis, c.cvt) / (2**i) / 5.0)
+                    feature_regularization_loss(self._cd(_nhwc(f)), target, c.dis, c.cvt)
+                    / (2**i) / 5.0)
 
         if features is not None and c.perception_weight > 0:
-            tgt_f = _nhwc(features[0])
+            tgt_f = self._cd(_nhwc(features[0]))
             warped_feats = self._warp_features(inputs, outputs, outputs["disps"][0])
             percep = [perceptional_loss(tgt_f, sf) for sf in warped_feats]
             min_percep = torch.cat(percep, dim=-1).min(dim=-1).values
@@ -213,9 +244,10 @@ class TripleDNet(nn.Module):
                 loss_dict[f"img_reconstruct_loss/{s}"] = rec / n_scales * c.img_reconstruct_weight
 
             warped = self._warp_colors(inputs, outputs, disp)
-            preds = torch.stack(idents + warped, dim=1)
+            # the slabs in the compute dtype; the kernels compute in float32
+            preds = self._cd(torch.stack(idents + warped, dim=1))
             min_rec, _ = fused_min_reprojection(
-                target, preds, grad_ks=tuple(range(n_id, preds.shape[1])),
+                self._cd(target), preds, grad_ks=tuple(range(n_id, preds.shape[1])),
                 need_target_grad=False)
             loss_dict[f"min_reconstruct_loss/{s}"] = min_rec.mean() / n_scales
 

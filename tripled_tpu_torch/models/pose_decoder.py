@@ -6,15 +6,17 @@ from __future__ import annotations
 import torch.nn as nn
 import torch.nn.functional as F
 
+from tripled_tpu_torch.models.layers import Conv2d
+
 
 class PoseDecoder(nn.Module):
     def __init__(self, in_channels: int = 512):
         super().__init__()
         self.convs = nn.ModuleList([
-            nn.Conv2d(in_channels, 256, 1),
-            nn.Conv2d(256, 256, 3, padding=1),
-            nn.Conv2d(256, 256, 3, padding=1),
-            nn.Conv2d(256, 6, 1),
+            Conv2d(in_channels, 256, 1),
+            Conv2d(256, 256, 3, padding=1),
+            Conv2d(256, 256, 3, padding=1),
+            Conv2d(256, 6, 1),
         ])
 
     def forward(self, bottom):

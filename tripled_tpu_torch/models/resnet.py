@@ -12,7 +12,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tripled_tpu_torch.models.layers import BatchNorm
+from tripled_tpu_torch.models.layers import BatchNorm, Conv2d, remat
 
 BLOCK_COUNTS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
 
@@ -25,7 +25,7 @@ def stage_channels(num_layers: int) -> tuple[int, ...]:
 
 
 def _conv(cin, cout, k, stride=1):
-    conv = nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
+    conv = Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
     fan_out = cout * k * k
     std = math.sqrt(2.0 / fan_out) / _TRUNC_STD
     nn.init.trunc_normal_(conv.weight, std=std, a=-2 * std, b=2 * std)
@@ -93,8 +93,9 @@ class Bottleneck(nn.Module):
 
 
 class ResNetFeatures(nn.Module):
-    def __init__(self, num_layers: int = 18, in_channels: int = 3):
+    def __init__(self, num_layers: int = 18, in_channels: int = 3, remat: bool = False):
         super().__init__()
+        self.remat = remat
         block = Bottleneck if num_layers > 34 else BasicBlock
         self.conv1 = _conv(in_channels, 64, 7, 2)
         self.bn1 = BatchNorm(64)
@@ -112,15 +113,27 @@ class ResNetFeatures(nn.Module):
             planes *= 2
         self.layers = nn.ModuleList(stages)
 
-    def forward(self, x, graph_stages: int = 5):
-        """The five stages' features. Stages past the first `graph_stages`
-        run without an autograd graph: their outputs carry no gradient,
-        but their BatchNorm layers still update the running statistics."""
+    def _graph_part(self, x, graph_stages: int):
+        """The stem and stages 1 .. graph_stages-1; returns their features
+        and the next stage's input."""
         x = F.relu(self.bn1(self.conv1(x)))
         feats = [x]
         x = F.max_pool2d(x, 3, stride=2, padding=1)
-        for i, stage in enumerate(self.layers, start=1):
-            with torch.set_grad_enabled(torch.is_grad_enabled() and i < graph_stages):
-                x = stage(x)
+        for stage in self.layers[:graph_stages - 1]:
+            x = stage(x)
             feats.append(x)
+        return feats, x
+
+    def forward(self, x, graph_stages: int = 5):
+        """The five stages' features. Stages past the first `graph_stages`
+        (the stem counts as the first) run without an autograd graph: their
+        outputs carry no gradient, but their BatchNorm layers still update
+        the running statistics. With `remat`, the part with a graph is
+        recomputed in the backward; the rest keeps nothing to recompute."""
+        graph_stages = max(graph_stages, 1)
+        feats, x = remat(self._graph_part, x, graph_stages, enabled=self.remat)
+        with torch.no_grad():
+            for stage in self.layers[graph_stages - 1:]:
+                x = stage(x)
+                feats.append(x)
         return feats

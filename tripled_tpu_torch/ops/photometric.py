@@ -29,8 +29,16 @@ from tripled_tpu_torch.utils import cuda_build
 
 SOURCES = (Path(__file__).resolve().parents[1] / "csrc" / "photometric.cu",)
 
-# Launches of each kernel wrapper since the caller last reset them.
+# Launches of each kernel wrapper since the caller last reset them, and the
+# same launches by input dtype ("fwd bfloat16": n)
 launches = {"fwd": 0, "bwd": 0}
+launches_by_dtype: dict[str, int] = {}
+
+
+def _count(kernel: str, dtype: torch.dtype) -> None:
+    launches[kernel] += 1
+    key = f"{kernel} {str(dtype).split('.')[-1]}"
+    launches_by_dtype[key] = launches_by_dtype.get(key, 0) + 1
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -126,7 +134,7 @@ def fwd_kernel(target: torch.Tensor, preds: torch.Tensor):
             B, K, H, W, C, int(target.dtype == torch.bfloat16), _stream(target))
     if err != 0:
         raise RuntimeError(f"photometric_fwd launch failed: cudaError {err}")
-    launches["fwd"] += 1
+    _count("fwd", target.dtype)
     return out, idx
 
 
@@ -160,7 +168,7 @@ def bwd_kernel(target, preds, g, idx, grad_ks: Sequence[int], need_target_grad: 
             B, K, H, W, C, mask, int(target.dtype == torch.bfloat16), _stream(target))
     if err != 0:
         raise RuntimeError(f"photometric_bwd launch failed: cudaError {err}")
-    launches["bwd"] += 1
+    _count("bwd", target.dtype)
     return dt, dp
 
 

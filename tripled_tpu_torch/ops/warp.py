@@ -12,7 +12,11 @@ import torch.nn.functional as F
 
 
 def grid_sample(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
-    """img (B, H, W, C), coords (B, Ho, Wo, 2) pixel (x, y) -> (B, Ho, Wo, C)."""
+    """img (B, H, W, C), coords (B, Ho, Wo, 2) pixel (x, y) -> (B, Ho, Wo, C),
+    interpolated in the wider of the two dtypes: a bf16 image's texels with
+    float32 coordinates interpolate in float32, as the JAX warp's
+    bf16 * f32 weights promote."""
+    img = img.to(torch.promote_types(img.dtype, coords.dtype))
     _, h, w, _ = img.shape
     scale = torch.tensor([2.0 / (w - 1), 2.0 / (h - 1)], dtype=coords.dtype,
                          device=coords.device)

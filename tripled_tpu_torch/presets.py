@@ -73,11 +73,10 @@ def flagship_bench() -> tuple[ModelConfig, DataConfig, OptimConfig]:
     `configs/cfg_kitti_tripled.py` through `configs/_common.py`. R50 depth,
     R18 pose at its fixed 192x640, joint R50 extractor, 320x1024, batch 12,
     the last encoder stage split between depth and colour, 16 erased 16x16
-    squares per sample.
-
-    It keeps the config's `remat=True`, which the port does not apply yet;
-    in the JAX package remat changes no number
-    (`tests/test_remat_equivalence.py`), only memory."""
+    squares per sample, float32, with the config's `remat=True`: remat
+    changes no number (`tests/test_torch_port_remat.py`), only memory and
+    time. For the mixed-precision step, replace `compute_dtype` with
+    "bfloat16"."""
     model = canonicalize(
         ModelConfig(
             name="mono_fm_joint_inpaint_disentangle",

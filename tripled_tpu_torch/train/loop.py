@@ -49,9 +49,6 @@ def train_mono(
     state and the eval hook's metrics, one dict per evaluated epoch."""
     log = get_root_logger()
     device = resolve_device(device)
-    if cfg.model.remat:
-        log.warning("remat=True is not applied: the port runs without rematerialisation "
-                    "for now (ROADMAP.md §1 item 3); numbers are the same, memory is not")
 
     if train_dataset is None:
         train_dataset = get_dataset(cfg.data, training=True)

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+from contextlib import contextmanager, nullcontext
 from typing import Callable, Dict
 
 import torch
@@ -11,17 +12,46 @@ from tripled_tpu_torch.ops.geometry import disp_to_depth
 from tripled_tpu_torch.train.optim import Adam
 
 
+@contextmanager
+def cast_floating(model: torch.nn.Module, dtype: torch.dtype):
+    """Inside the block each floating parameter of `model` reads as its cast
+    to `dtype` (`_cast_floating`, `tripled_tpu/train/step.py:20-34`): a
+    tensor autograd records, so that the gradient reaches the parameter
+    through the cast and comes out in the parameter's dtype. The parameters
+    themselves, and the optimizer's state, keep theirs. Run the forward and
+    the backward inside: a `remat` recompute in the backward reads the same
+    casts."""
+    swapped = []
+    try:
+        for module in model.modules():
+            for name, p in list(module._parameters.items()):
+                if p is not None and p.is_floating_point():
+                    del module._parameters[name]
+                    setattr(module, name, p.to(dtype))
+                    swapped.append((module, name, p))
+        yield
+    finally:
+        for module, name, p in reversed(swapped):
+            delattr(module, name)
+            module._parameters[name] = p
+
+
 def make_train_step(model: TripleDNet, optimizer: Adam) -> Callable:
     """step(batch, generator=None) -> metrics: every loss_dict entry, `loss`
-    (their sum) and `grad_norm` (before clipping), as 0-d tensors.
-    `generator` draws the decoder's dropout."""
+    (their sum) and `grad_norm` (before clipping), as 0-d float32 tensors.
+    `generator` draws the decoder's dropout. Under
+    `compute_dtype="bfloat16"` the loss sees every floating parameter
+    rounded to bf16 (`cast_floating`); gradients, parameters and Adam's
+    moments stay float32."""
+    bf16 = model.cfg.compute_dtype == "bfloat16"
 
     def train_step(batch: Dict[str, torch.Tensor], generator: torch.Generator | None = None):
         model.train()
-        loss_dict = model(batch, generator)[1]  # no reference to the outputs past here
-        total = sum(loss_dict.values())
         model.zero_grad(set_to_none=True)
-        total.backward()
+        with cast_floating(model, torch.bfloat16) if bf16 else nullcontext():
+            loss_dict = model(batch, generator)[1]  # no reference to the outputs past here
+            total = sum(loss_dict.values())
+            total.backward()
         grad_norm = optimizer.step()
         metrics = {k: v.detach() for k, v in loss_dict.items()}
         metrics["loss"] = total.detach()
@@ -33,7 +63,10 @@ def make_train_step(model: TripleDNet, optimizer: Adam) -> Callable:
 
 def make_predict_fn(model: TripleDNet) -> Callable:
     """Eval-mode prediction: images (B, 1, H, W, 3) -> scale-0 scaled
-    disparity (B, h, w, 1), whose inverse is the depth."""
+    disparity (B, h, w, 1), whose inverse is the depth. The parameters are
+    not cast: under `compute_dtype="bfloat16"` only the depth encoder's
+    input is bf16-rounded, and the networks compute in float32, as the JAX
+    package's predict does under flax's promotion."""
     cfg = model.cfg
 
     @torch.no_grad()

@@ -7,7 +7,8 @@ numpy arrays. Conv kernels go from HWIO to OIHW; flax BatchNorm
 written: a missing key, a leftover key or an unwritten tensor raises.
 Trees of a `remat=True` JAX model load too: there `nn.remat` names each
 encoder's ResNet `CheckpointResNetFeatures_0` instead of `ResNetFeatures_0`.
-The disentangle split (`depth_skips`) has no variables.
+A `compute_dtype="bfloat16"` model keeps float32 variables, which load as
+they are. The disentangle split (`depth_skips`) has no variables.
 """
 
 from __future__ import annotations
