@@ -4,6 +4,8 @@
 
 Phases, each printed as one JSON line with its wall time:
   device   card, torch and CUDA versions, TF32 settings (set here)
+  host_env the cores, g++ and the libpng and libjpeg headers, and the native
+           image loader (`csrc/loader.cpp`) built cold with g++
   build    the CUDA kernels compiled cold with nvcc, one process per source,
            all started together
   kernels  each kernel against its plain PyTorch version on the card, with
@@ -45,11 +47,26 @@ Phases, each printed as one JSON line with its wall time:
            hook, then `--auto_resume` for a 2nd, then `cli.eval_depth` on
            the epoch-2 checkpoint, which must give the hook's metrics; the
            CLI's ms/step and the host's wait for batches, beside the bare
-           flagship step above, and the loader's ms per batch alone
+           flagship step above, and the frames each decoder decoded
   infer    the inference CLIs on train_cli's epoch-2 checkpoint: `cli.infer`
            on one 375x1242 frame of the tree (its depth map held against the
            loaded model's prediction), `cli.infer_singleimage --limit 4` and
            `cli.gather_inference_imgs` with the config twice
+  loader   on a second tree (98 frames at 375x1242: 8 steps of 12 an epoch),
+           the loader alone at the flagship's size (kitti_inpaint, 320x1024,
+           batch 12, decode cache off): ms per batch on 1 and 4 threads for
+           PIL and the native loader, each with ColorJitter on the host and
+           float frames, and with device_color_aug and ship_uint8; the bytes
+           of a batch that cross to the card; the decoders' counts
+  jitter   ColorJitter (`ops/jitter.py`) on the card at (12, 3, 320, 1024, 3)
+           against the same function on the CPU: max abs error and ms
+  train_cli_fast  the train CLI on `configs/cfg_kitti_tripled.py` in bfloat16
+           with its remat, twice on that tree for 2 epochs: the host path
+           (PIL, host jitter, float frames) and the fast path (the native
+           loader, device_color_aug, ship_uint8, a 4096 MB decode cache):
+           ms/step after each epoch's first, images/s, the host's wait per
+           step and per epoch, peak memory, the decoders' counts, and the
+           two runs' first losses against each other
   probe    `python -m tripled_tpu_torch.dev.element_probe`'s main() on the card
 Then the kernel summary line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Any failure raises and exits
@@ -61,6 +78,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -492,13 +510,61 @@ from tripled_tpu_torch.config import load_config
 base = load_config({base!r})
 config = dataclasses.replace(
     base,
+    model=dataclasses.replace(base.model{model}),
     data=dataclasses.replace(base.data, in_path={root!r}, gt_depth_path={gt!r},
-                             split="synthetic"),
+                             split="synthetic"{data}),
     optim=dataclasses.replace(base.optim, total_epochs={epochs}),
     work_dir={work!r},
     log_interval=1,
 )
 """
+BASE_CONFIG = os.path.join(HERE, "tripled_tpu_torch", "configs", "cfg_kitti_tripled.py")
+
+
+def write_cli_config(path, tree, epochs, work, model="", data=""):
+    """A config file: cfg_kitti_tripled.py pointed at `tree`, with `epochs`
+    epochs, `work` as its work dir, a row in metrics.jsonl at every step,
+    and `model` / `data` appended to the model's and data's replacements."""
+    with open(path, "w") as f:
+        f.write(CLI_CONFIG.format(base=BASE_CONFIG, root=tree["root"], gt=tree["gt_depth_path"],
+                                  epochs=epochs, work=work, model=model, data=data))
+    return path
+
+
+class env_vars:
+    """Set environment variables for the block, and restore them after."""
+
+    def __init__(self, **values):
+        self.values = values
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.values}
+        os.environ.update(self.values)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def step_times(rows, steps_per_epoch):
+    """ms of each step after an epoch's first, from one logged row to the
+    next (the loop reads the losses at every step, so each row follows a
+    finished step)."""
+    def epoch_of(row):
+        return (row["step"] - 1) // steps_per_epoch
+
+    return [1e3 * (b["time"] - a["time"]) for a, b in zip(rows, rows[1:])
+            if epoch_of(a) == epoch_of(b)]
+
+
+def decoder_counts(epoch_row):
+    """The frames each decoder has decoded, from an `epoch/*` row of
+    metrics.jsonl."""
+    prefix = "epoch/decodes_"
+    return {k[len(prefix):]: v for k, v in epoch_row.items() if k.startswith(prefix)}
 
 
 def train_cli_path(photometric, dev, seed, tmp):
@@ -508,37 +574,28 @@ def train_cli_path(photometric, dev, seed, tmp):
     Returns the measurements, and the tree, config and work dir."""
     from tripled_tpu_torch.cli import eval_depth, train
     from tripled_tpu_torch.config import load_config
-    from tripled_tpu_torch.data.get_dataset import get_dataset
-    from tripled_tpu_torch.data.pipeline import BatchLoader
     from tripled_tpu_torch.data.synthetic import make_kitti_tree
     from tripled_tpu_torch.eval.depth_metrics import METRIC_NAMES
 
-    base = os.path.join(HERE, "tripled_tpu_torch", "configs", "cfg_kitti_tripled.py")
     t0 = time.perf_counter()
     tree = make_kitti_tree(os.path.join(tmp, "kitti"), num_frames=28, height=375, width=1242,
                            seed=seed)
     tree_s = time.perf_counter() - t0
     work = os.path.join(tmp, "work")
-    configs = {}
-    for epochs in (1, 2):
-        configs[epochs] = os.path.join(tmp, f"cfg_{epochs}.py")
-        with open(configs[epochs], "w") as f:
-            f.write(CLI_CONFIG.format(base=base, root=tree["root"], gt=tree["gt_depth_path"],
-                                      epochs=epochs, work=work))
+    configs = {epochs: write_cli_config(os.path.join(tmp, f"cfg_{epochs}.py"), tree, epochs,
+                                        work) for epochs in (1, 2)}
     cfg = load_config(configs[2])
-    reference = load_config(base)
+    reference = load_config(BASE_CONFIG)
     if (cfg.model, cfg.data.batch_size, cfg.data.erase_count, cfg.data.erase_shape) != (
             reference.model, reference.data.batch_size, reference.data.erase_count,
             reference.data.erase_shape):
         raise AssertionError("the CLI's config differs from cfg_kitti_tripled beyond the data")
     steps_per_epoch = (tree["num_frames"] - 2) // cfg.data.batch_size
 
-    previous = os.environ.get("TRIPLED_SPLITS_DIR")
-    os.environ["TRIPLED_SPLITS_DIR"] = tree["splits_dir"]
     torch.cuda.reset_peak_memory_stats(dev)
     for k in photometric.launches:
         photometric.launches[k] = 0
-    try:
+    with env_vars(TRIPLED_SPLITS_DIR=tree["splits_dir"]):
         t1 = time.perf_counter()
         state, hist1 = train.main(["--config", configs[1], "--device", str(dev)])
         run1_s = time.perf_counter() - t1
@@ -555,23 +612,6 @@ def train_cli_path(photometric, dev, seed, tmp):
         evaluated = eval_depth.main(["--config", configs[2], "--checkpoint",
                                      os.path.join(work, "ckpt", "epoch_2"), "--device", str(dev)])
         eval_s = time.perf_counter() - t3
-        # the loader alone, with no step competing for the host: an epoch's
-        # batches on the CLI's 4 threads, and one batch on one thread
-        loader_ms = {}
-        dataset = get_dataset(cfg.data, training=True)
-        for workers, n in ((4, steps_per_epoch), (1, 1)):
-            batches = iter(BatchLoader(dataset, cfg.data.batch_size, seed=cfg.seed,
-                                       num_workers=workers))
-            t4 = time.perf_counter()
-            for _ in range(n):
-                next(batches)
-            loader_ms[f"{workers}_threads"] = 1e3 * (time.perf_counter() - t4) / n
-            batches.close()
-    finally:
-        if previous is None:
-            os.environ.pop("TRIPLED_SPLITS_DIR")
-        else:
-            os.environ["TRIPLED_SPLITS_DIR"] = previous
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     torch.cuda.empty_cache()
 
@@ -605,13 +645,7 @@ def train_cli_path(photometric, dev, seed, tmp):
     if max(diff.values()) > 1e-6 or not all(math.isfinite(hook[k]) for k in METRIC_NAMES):
         raise AssertionError(f"eval CLI {evaluated} disagrees with the hook {hook}")
 
-    # a step after an epoch's first: from one logged row to the next (the
-    # loop reads the losses at every step, so each row follows a finished step)
-    def epoch_of(row):
-        return (row["step"] - 1) // steps_per_epoch
-
-    step_ms = [1e3 * (b["time"] - a["time"]) for a, b in zip(train_rows, train_rows[1:])
-               if epoch_of(a) == epoch_of(b)]
+    step_ms = step_times(train_rows, steps_per_epoch)
     ms = sum(step_ms) / len(step_ms)
     waits = [r["epoch/loader_wait_s"] for r in epoch_rows]
     paths = {"tree": tree, "config": configs[2], "work": work}
@@ -629,7 +663,7 @@ def train_cli_path(photometric, dev, seed, tmp):
             "loader_wait_ms_per_step": 1e3 * sum(waits) / n_steps,
             "loader_wait_share_of_epochs": sum(waits) / sum(r["epoch/seconds"]
                                                             for r in epoch_rows),
-            "loader_alone_ms_per_batch": loader_ms,
+            "decodes": decoder_counts(epoch_rows[-1]),
             "eval_images_per_s": {"hook": [r["val/eval_fps"] for r in val_rows],
                                   "eval_cli": evaluated["eval_fps"]},
             "eval_cli_max_abs_diff": max(diff.values()),
@@ -655,9 +689,7 @@ def infer_path(dev, tmp, paths):
     frame = os.path.join(image_dir, sorted(os.listdir(image_dir))[0])
     out = {name: os.path.join(tmp, name) for name in ("infer", "single", "grids")}
     seconds = {}
-    previous = os.environ.get("TRIPLED_SPLITS_DIR")
-    os.environ["TRIPLED_SPLITS_DIR"] = paths["tree"]["splits_dir"]
-    try:
+    with env_vars(TRIPLED_SPLITS_DIR=paths["tree"]["splits_dir"]):
         t0 = time.perf_counter()
         depth = infer.main(["--config", cfg, "--checkpoint", ckpt, "--image", frame,
                             "--out_dir", out["infer"], "--height", str(height),
@@ -672,11 +704,6 @@ def infer_path(dev, tmp, paths):
                                               "--limit", "4", "--out_dir", out["grids"],
                                               "--device", str(dev)])
         seconds["gather_inference_imgs"] = time.perf_counter() - t0
-    finally:
-        if previous is None:
-            os.environ.pop("TRIPLED_SPLITS_DIR")
-        else:
-            os.environ["TRIPLED_SPLITS_DIR"] = previous
 
     # the depth map: STEREO_SCALE_FACTOR over the loaded model's prediction
     # at the config's size, resized to the frame as the CLI resizes it
@@ -707,6 +734,257 @@ def infer_path(dev, tmp, paths):
             "depth_max_rel_gap_to_predict": rel, "disp_png": list(disp_png.shape),
             "singleimage_files": len(singles), "grids": len(grids),
             "grid_shape": list(grid_shape), "cli_seconds": seconds}
+
+
+def host_env():
+    """The host toolchain of the native loader, and the loader's build,
+    cold: the cores, g++'s version, whether png.h and jpeglib.h are in
+    /usr/include, and whether the library built and loaded."""
+    import shutil
+    import subprocess
+
+    from tripled_tpu_torch.data import native_loader
+
+    gxx = shutil.which("g++")
+    version = None
+    if gxx is not None:
+        out = subprocess.run([gxx, "--version"], capture_output=True, text=True, timeout=60)
+        version = out.stdout.splitlines()[0] if out.stdout else out.stderr.strip()
+    lib = native_loader.library_path()
+    if lib.exists():
+        lib.unlink()  # build cold
+    t0 = time.perf_counter()
+    try:
+        native_loader.load_library()
+        error = None
+    except RuntimeError as e:
+        error = str(e)[-3000:]
+    return {"cpu_count": os.cpu_count(), "gxx": gxx, "gxx_version": version,
+            "headers": {h: os.path.exists(os.path.join("/usr/include", h))
+                        for h in ("png.h", "jpeglib.h")},
+            "loader_built": error is None, "loader_build_s": time.perf_counter() - t0,
+            "loader_library": os.path.relpath(lib, HERE), "loader_build_error": error}
+
+
+# (device_color_aug, ship_uint8) of the two host paths: the PIL-era path of
+# ColorJitter on the host and float frames, and the fast path of `bench.py`'s
+# end-to-end row (`bench.py:383-389`)
+HOST_MODES = {"host_jitter_float": (False, False), "device_jitter_uint8": (True, True)}
+
+
+class gc_pauses:
+    """The Python garbage collector's pauses in the block, from any thread:
+    collections by generation, their total and longest seconds."""
+
+    def __enter__(self):
+        self.pauses, self.generations, self._start = [], defaultdict(int), 0.0
+        gc.callbacks.append(self._callback)
+        return self
+
+    def _callback(self, phase, info):
+        if phase == "start":
+            self._start = time.perf_counter()
+        else:
+            self.pauses.append(time.perf_counter() - self._start)
+            self.generations[info["generation"]] += 1
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._callback)
+
+    def summary(self):
+        return {"collections_by_generation": dict(self.generations),
+                "seconds": sum(self.pauses), "longest_s": max(self.pauses, default=0.0)}
+
+
+ALLOCATOR_COUNTS = ("num_alloc_retries", "num_device_alloc", "num_device_free",
+                    "num_sync_all_streams")
+HOST_ALLOCATOR_COUNTS = ("num_host_alloc", "num_host_free", "host_alloc_time.total",
+                         "host_free_time.total")
+
+
+def allocator_counts(dev):
+    """Cumulative counters of the CUDA caching allocator (blocks obtained
+    from and returned to CUDA, retries after a failed allocation, syncs of
+    all streams) and of the pinned host allocator (blocks and microseconds
+    spent growing and shrinking its pool)."""
+    stats = torch.cuda.memory_stats(dev)
+    host = torch.cuda.host_memory_stats()
+    return {**{k: stats.get(k, 0) for k in ALLOCATOR_COUNTS},
+            **{f"pinned {k}": host.get(k, 0) for k in HOST_ALLOCATOR_COUNTS}}
+
+
+NO_NATIVE_NOTE = ("the native loader did not build here (host_env says why): every frame "
+                  "decodes with PIL, and the fast path is device_color_aug and ship_uint8 only")
+
+
+def check_decodes(decodes, native):
+    """A dataset's decoder counts: some frames decoded, and by the native
+    loader when it is on."""
+    if native and decodes["native"] == 0 or sum(decodes.values()) == 0:
+        raise AssertionError(f"decoder counts {decodes} with the native loader "
+                             f"{'on' if native else 'off'}")
+
+
+def loader_path(tree, data_cfg, seed):
+    """The loader alone, with no step competing for the host, at the
+    flagship's size: ms per batch on 1 and 4 threads for each decoder and
+    host mode, with the decode cache off, and the bytes of a batch that
+    cross to the card."""
+    from tripled_tpu_torch.data import native_loader
+    from tripled_tpu_torch.data.get_dataset import get_dataset
+    from tripled_tpu_torch.data.pipeline import BatchLoader
+
+    decoders = ("pil", "native") if native_loader.available() else ("pil",)
+    rows = []
+    for decoder in decoders:
+        for mode, (device_color_aug, ship_uint8) in HOST_MODES.items():
+            data = dataclasses.replace(data_cfg, in_path=tree["root"],
+                                       gt_depth_path=tree["gt_depth_path"], split="synthetic",
+                                       decode_cache_mb=0, device_color_aug=device_color_aug,
+                                       ship_uint8=ship_uint8)
+            with env_vars(TRIPLED_SPLITS_DIR=tree["splits_dir"],
+                          TRIPLED_NATIVE_LOADER="1" if decoder == "native" else "0",
+                          TRIPLED_DECODE_CACHE_MB="0"):
+                dataset = get_dataset(data, training=True)
+                row = {"decoder": decoder, "mode": mode}
+                for workers, n in ((1, 2), (4, 6)):
+                    batches = iter(BatchLoader(dataset, data.batch_size, seed=seed,
+                                               num_workers=workers))
+                    t0 = time.perf_counter()
+                    for _ in range(n):
+                        batch = next(batches)
+                    row[f"ms_per_batch_{workers}_threads"] = 1e3 * (time.perf_counter() - t0) / n
+                    batches.close()
+            check_decodes(dataset.decodes, decoder == "native")
+            row["decodes"] = dict(dataset.decodes)
+            row["bytes_per_batch_to_card"] = sum(v.nbytes for k, v in batch.items()
+                                                 if k != "gt_depth")
+            row["dtypes"] = {k: str(v.dtype) for k, v in batch.items() if k != "gt_depth"}
+            rows.append(row)
+    return {"shape": [data_cfg.batch_size, 3, data_cfg.height, data_cfg.width, 3],
+            "source_frames": [tree["height"], tree["width"]], "dataset": data_cfg.name,
+            "native_loader": native_loader.available(),
+            "note": None if native_loader.available() else NO_NATIVE_NOTE,
+            "decode_cache_mb": 0, "rows": rows}
+
+
+def jitter_path(dev, seed, batch, height, width):
+    """ColorJitter on the card at the flagship's batch against the same
+    function on the CPU: max abs error (bound 2e-6, the port's bound
+    against the JAX package) and ms. One sample of the batch un-jittered."""
+    import numpy as np
+
+    from tripled_tpu_torch.data.transforms import ColorJitter
+    from tripled_tpu_torch.ops.jitter import color_jitter, sample_jitter_params
+
+    rng = np.random.RandomState(seed)
+    color = torch.from_numpy(rng.rand(batch, 3, height, width, 3).astype(np.float32))
+    params = torch.from_numpy(np.stack([
+        sample_jitter_params(np.random.RandomState(seed + i), ColorJitter(), i != batch - 1)
+        for i in range(batch)]))
+    t0 = time.perf_counter()
+    want = color_jitter(color, params)
+    cpu_s = time.perf_counter() - t0
+    color_d, params_d = color.to(dev), params.to(dev)
+    got = color_jitter(color_d, params_d)
+    err = (got.cpu() - want).abs().max().item()
+    if err > 2e-6 or not torch.equal(got[-1].cpu(), color[-1]):
+        raise AssertionError(f"ColorJitter on the card is {err} from the CPU's")
+    nbytes = 2 * color.numel() * 4  # the frames read once and written once
+    return {"shape": list(color.shape), "max_abs_err": err, "ms": cuda_ms(
+        lambda: color_jitter(color_d, params_d), 10), "cpu_s": cpu_s,
+        "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        "orders": params[:, 4:8].int().tolist()}
+
+
+def train_cli_fast_path(photometric, dev, tree, tmp):
+    """The train CLI on cfg_kitti_tripled.py in bfloat16 with its remat, run
+    twice on one tree for 2 epochs: the host path (PIL, ColorJitter on the
+    host, float frames) and the fast path (the native loader,
+    device_color_aug, ship_uint8, a 4096 MB decode cache, as `bench.py`'s
+    end-to-end row). The photometric launch counts are set to 0 before
+    each run and read after it."""
+    from tripled_tpu_torch.cli import train
+    from tripled_tpu_torch.config import load_config
+    from tripled_tpu_torch.data import native_loader
+
+    native = native_loader.available()
+    runs = {
+        "host": ("0", ""),
+        "fast": ("1" if native else "0",
+                 ", device_color_aug=True, ship_uint8=True, decode_cache_mb=4096"),
+    }
+    out = {"native_loader": native, "note": None if native else NO_NATIVE_NOTE}
+    first_loss = {}
+    for label, (native_env, data) in runs.items():
+        work = os.path.join(tmp, f"work_{label}")
+        config = write_cli_config(os.path.join(tmp, f"cfg_fast_{label}.py"), tree, 2, work,
+                                  model=', compute_dtype="bfloat16"', data=data)
+        cfg = load_config(config)
+        steps_per_epoch = (tree["num_frames"] - 2) // cfg.data.batch_size
+        n_steps = 2 * steps_per_epoch
+        torch.cuda.reset_peak_memory_stats(dev)
+        for k in photometric.launches:
+            photometric.launches[k] = 0
+        photometric.launches_by_dtype.clear()
+        # the earlier phases' garbage (the profiler's) goes now, not in a
+        # full collection inside the run's steps (2.1 s in one run)
+        gc.collect()
+        counts_before = allocator_counts(dev)
+        with env_vars(TRIPLED_SPLITS_DIR=tree["splits_dir"], TRIPLED_NATIVE_LOADER=native_env), \
+                gc_pauses() as pauses:
+            t0 = time.perf_counter()
+            state, history = train.main(["--config", config, "--device", str(dev)])
+            run_s = time.perf_counter() - t0
+        counts = {k: v - counts_before[k] for k, v in allocator_counts(dev).items()}
+        launches, by_dtype = dict(photometric.launches), dict(photometric.launches_by_dtype)
+        peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+        count = state.optimizer.count
+        del state
+        torch.cuda.empty_cache()
+        with open(os.path.join(work, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        train_rows = [r for r in rows if "train/loss" in r]
+        epoch_rows = [r for r in rows if "epoch/loader_wait_s" in r]
+        per_step = len(cfg.model.scales)
+        if (count != n_steps or len(train_rows) != n_steps or len(epoch_rows) != 2
+                or launches != {"fwd": per_step * n_steps, "bwd": per_step * n_steps}
+                or by_dtype != {f"{k} bfloat16": v for k, v in launches.items()}):
+            raise AssertionError(f"{label}: {count} steps, {len(train_rows)} rows, launches "
+                                 f"{launches} {by_dtype}; expected {n_steps} bf16 steps")
+        bad = [k for r in train_rows for k, v in r.items() if not math.isfinite(v)]
+        if bad or not all(math.isfinite(h["abs_rel"]) for h in history):
+            raise AssertionError(f"{label}: non-finite metrics {bad} {history}")
+        decodes = decoder_counts(epoch_rows[-1])
+        check_decodes(decodes, native_env == "1")
+        first_loss[label] = train_rows[0]["train/loss"]
+        step_ms = step_times(train_rows, steps_per_epoch)
+        ms = sum(step_ms) / len(step_ms)
+        waits = [r["epoch/loader_wait_s"] for r in epoch_rows]
+        out[label] = {
+            "native_loader": native_env == "1", "device_color_aug": cfg.data.device_color_aug,
+            "ship_uint8": cfg.data.ship_uint8, "decode_cache_mb": cfg.data.decode_cache_mb,
+            "steps": n_steps, "run_seconds": run_s, "ms_per_step_after_first": step_ms,
+            "ms_per_step": ms, "images_per_s": cfg.data.batch_size / (ms / 1e3),
+            "epoch_seconds": [r["epoch/seconds"] for r in epoch_rows],
+            "epoch_images_per_s": [r["epoch/images_per_s"] for r in epoch_rows],
+            "loader_wait_s_by_epoch": waits,
+            "loader_wait_ms_per_step": 1e3 * sum(waits) / n_steps,
+            "loader_wait_share_of_epochs": sum(waits) / sum(r["epoch/seconds"]
+                                                            for r in epoch_rows),
+            "eval_images_per_s": [r["val/eval_fps"] for r in rows if "val/eval_fps" in r],
+            "decodes": decodes, "peak_memory_gib": peak_gib, "launches": launches,
+            "launches_by_dtype": by_dtype, "slowest_step_index": step_ms.index(max(step_ms)),
+            "gc_pauses": pauses.summary(), "allocator_counts": counts}
+    # the same samples and dropout: the runs differ in the frames' decoder
+    # (the same bytes after rounding) and the jitter (2e-6); 5e-3 is the bf16
+    # step's loss bound on the card against the CPU
+    gap = abs(first_loss["fast"] - first_loss["host"]) / abs(first_loss["host"])
+    if gap > 5e-3:
+        raise AssertionError(f"first losses {first_loss}: the fast path's is {gap} away")
+    out["first_loss"] = first_loss
+    out["first_loss_rel_gap"] = gap
+    return out
 
 
 def flagship_phases(photometric, dev, seed, card, model_cfg, data_cfg, optim_cfg):
@@ -808,6 +1086,8 @@ def main():
           gpu=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
           matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
           cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
+    t0 = time.perf_counter()
+    phase("host_env", t0, **host_env())
 
     t0 = time.perf_counter()
     libraries = {"photometric": photometric, "element_probe": probe}
@@ -880,6 +1160,31 @@ def main():
         phase("train_cli", t0, card=card, bare_flagship_ms_per_step=flagship_ms, **cli)
         t0 = time.perf_counter()
         phase("infer", t0, card=card, **infer_path(dev, tmp, paths))
+
+    with tempfile.TemporaryDirectory(prefix="train_cli_fast_") as tmp:
+        from tripled_tpu_torch.config import load_config
+        from tripled_tpu_torch.data.synthetic import make_kitti_tree
+
+        t0 = time.perf_counter()
+        tree = make_kitti_tree(os.path.join(tmp, "kitti"), num_frames=98, height=375,
+                               width=1242, seed=args.seed)
+        tree_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        phase("loader", t0, card=card, tree_seconds=tree_s,
+              **loader_path(tree, load_config(BASE_CONFIG).data, args.seed))
+        t0 = time.perf_counter()
+        phase("jitter", t0, card=card, **jitter_path(dev, args.seed, flagship_data.batch_size,
+                                                      flagship_cfg.height, flagship_cfg.width))
+        t0 = time.perf_counter()
+        fast = train_cli_fast_path(photometric, dev, tree, tmp)
+        launches_by_path["train_cli_fast_host"] = fast["host"]["launches"]
+        launches_by_path["train_cli_fast"] = fast["fast"]["launches"]
+        phase("train_cli_fast", t0, card=card, config="tripled_tpu_torch/configs/"
+              "cfg_kitti_tripled.py with compute_dtype bfloat16 and its remat; data, split, "
+              "epochs (2), work dir and log interval replaced, and on the fast path "
+              "device_color_aug, ship_uint8 and decode_cache_mb=4096",
+              tree={"frames": tree["num_frames"], "height": tree["height"],
+                    "width": tree["width"]}, **fast)
 
     t0 = time.perf_counter()
     for k in probe.launches:

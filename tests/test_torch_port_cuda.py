@@ -1,6 +1,6 @@
 """tripled_tpu_torch's CUDA kernels against their plain PyTorch versions
-on the card, the data pipeline's prefetch to the card, and one step of the
-train CLI there. Every test here needs a CUDA device and skips without one.
+on the card, the data pipeline's prefetch to the card, the device
+ColorJitter against the CPU, and one step of the train CLI there. Every test here needs a CUDA device and skips without one.
 The file imports no JAX, so that it runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
@@ -26,6 +26,18 @@ off 2.4e-7, 6.8e-4 and 9.5e-6; with cuDNN off the losses repeat exactly,
 so its algorithms for these shapes are the source. BatchNorm statistics
 repeated exactly in every run. The photometric kernels in bf16 at 320x1024 are among the cases of
 test_kernels_match_plain.
+
+The device ColorJitter (`ops/jitter.py`) on the card against the CPU:
+2e-6, the bound the port holds against the JAX package (its grayscale dot
+and contrast mean are carried in float64 so that both give the same bits;
+the other ops are single IEEE operations, and the hue's divide by 6 and
+the uint8 frames' divide by 255 are true divides on the card too, which
+test_uint8_frames_divide_on_the_card_as_on_the_cpu holds bit for bit). The small flagship step on a
+fast-path batch (uint8 frames and jitter params) in float32 with TF32 off
+on the card against the CPU: each metric within three times the card's
+run-to-run spread (a second card run) plus 1e-4 of its value,
+chip_smoke.py's float32 bound for the small step on the card against the
+CPU (seen there: losses 8.1e-7, gradient norm 3.6e-6).
 """
 
 import math
@@ -331,9 +343,20 @@ SMALL_FLAGSHIP = dict(name="mono_fm_joint_inpaint_disentangle", depth_num_layers
                       disentangle_layers=(False, False, False, False, True))
 
 
-def _small_step(device, remat=False, compute_dtype="float32", dropout=0.0):
+def _jitter_params(seeds):
+    """(len(seeds), 9) params, one `sample_jitter_params` draw per seed."""
+    from tripled_tpu_torch.data.transforms import ColorJitter
+    from tripled_tpu_torch.ops.jitter import sample_jitter_params
+
+    return np.stack([sample_jitter_params(np.random.RandomState(s), ColorJitter(), s % 4 != 3)
+                     for s in seeds])
+
+
+def _small_step(device, remat=False, compute_dtype="float32", dropout=0.0, fast=False):
     """One step of the small flagship from seed 0; the metrics, gradients
-    and BatchNorm statistics as float64 on the CPU."""
+    and BatchNorm statistics as float64 on the CPU. `fast`: the frames as
+    uint8 with jitter params in place of color_aug, as the host fast path
+    ships them."""
     from tripled_tpu_torch.config import ModelConfig, OptimConfig
     from tripled_tpu_torch.train.state import create_train_state
     from tripled_tpu_torch.train.step import make_train_step
@@ -344,6 +367,10 @@ def _small_step(device, remat=False, compute_dtype="float32", dropout=0.0):
     state = create_train_state(cfg, OptimConfig(warmup_iters=2), 100, seed=0, device=device)
     batch = random_train_inputs(2, 64, 160, seed=0, erase_count=4, erase_shape=(8, 8),
                                 device=device)
+    if fast:
+        batch["color"] = (batch["color"] * 255).round().to(torch.uint8)
+        batch["jitter_params"] = torch.from_numpy(_jitter_params([0, 1])).to(device)
+        del batch["color_aug"]
     gen = torch.Generator(device).manual_seed(1)
     metrics = make_train_step(state.model, state.optimizer)(batch, gen)
     grads = {n: p.grad.double().cpu() for n, p in state.model.named_parameters()
@@ -390,3 +417,49 @@ def test_remat_on_the_card_within_its_spread(cuda_device):
         spread = (again_stats[name] - off_stats[name]).abs().max().item()
         gap = (on_stats[name] - off_stats[name]).abs().max().item()
         assert gap <= 3 * spread + 1e-6 * off_stats[name].abs().max().item(), name
+
+
+@pytest.mark.cuda
+def test_color_jitter_on_the_card_matches_the_cpu(cuda_device):
+    from tripled_tpu_torch.ops.jitter import color_jitter
+
+    rng = np.random.RandomState(0)
+    x = rng.rand(8, 3, 64, 160, 3).astype(np.float32)
+    x[:, :, 0] = 0.0
+    x[:, :, 1] = 1.0
+    x[:, :, 2] = x[:, :, 2, :, :1]  # grey rows
+    params = _jitter_params(range(8))
+    params[0, 8] = 0.0
+    want = color_jitter(torch.from_numpy(x), torch.from_numpy(params))
+    got = color_jitter(torch.from_numpy(x).to(cuda_device),
+                       torch.from_numpy(params).to(cuda_device))
+    assert got.is_cuda and got.dtype == torch.float32
+    assert (got.cpu() - want).abs().max().item() <= 2e-6
+    assert torch.equal(got[0].cpu(), torch.from_numpy(x[0]))  # apply = 0
+
+
+@pytest.mark.cuda
+def test_fast_batch_step_on_the_card_matches_the_cpu(cuda_device, monkeypatch):
+    # float32 on both sides: cuDNN's TF32 convolutions are on by default
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    gpu, _, _ = _small_step(cuda_device, fast=True)
+    again, _, _ = _small_step(cuda_device, fast=True)
+    cpu, _, _ = _small_step("cpu", fast=True)
+    assert set(gpu) == set(cpu) == set(again)
+    for k in cpu:
+        assert math.isfinite(gpu[k])
+        spread = abs(again[k] - gpu[k])
+        assert abs(gpu[k] - cpu[k]) <= 3 * spread + 1e-4 * abs(cpu[k]), (k, gpu[k], cpu[k])
+
+
+@pytest.mark.cuda
+def test_uint8_frames_divide_on_the_card_as_on_the_cpu(cuda_device):
+    from tripled_tpu_torch.models.net import frames_to_float
+
+    x = torch.arange(256, dtype=torch.uint8).reshape(1, 1, 16, 16, 1)
+    want = x.numpy().astype(np.float32) / np.float32(255.0)
+    got = frames_to_float(x.to(cuda_device))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    np.testing.assert_array_equal(frames_to_float(x).numpy(), want)

@@ -115,8 +115,9 @@ class DataConfig:
     # in-RAM cache of decoded and resized frames (uint8, lossless), in MB;
     # 0 = off. Env override: TRIPLED_DECODE_CACHE_MB.
     decode_cache_mb: int = 0
-    # color_aug made on the device from per-sample jitter factors, and
-    # frames shipped as uint8: not ported yet (the datasets refuse them)
+    # training samples carry 9 jitter floats, and the model makes color_aug
+    # on the device (`ops/jitter.py`); frames cross to the device as uint8
+    # and are divided by 255 there (training needs device_color_aug)
     device_color_aug: bool = False
     ship_uint8: bool = False
 

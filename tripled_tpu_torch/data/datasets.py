@@ -1,10 +1,14 @@
-"""Triplet-frame datasets (`tripled_tpu/data/datasets.py`), numpy and PIL
-on the host. Each dataset gives one sample dict of fixed-shape float32
-arrays, stacked over the frame axis in `frame_ids` order (index 0 is the
-target); `pipeline.py` batches them.
+"""Triplet-frame datasets (`tripled_tpu/data/datasets.py`), numpy on the
+host. Each dataset gives one sample dict of fixed-shape arrays, stacked
+over the frame axis in `frame_ids` order (index 0 is the target);
+`pipeline.py` batches them.
 
 Sample keys (a subset, by dataset):
-  color, color_aug  (F, H, W, 3)
+  color, color_aug  (F, H, W, 3) float32 in [0, 1], or uint8 under
+                    DataConfig.ship_uint8 (the model divides by 255)
+  jitter_params     (9,) float32 in place of color_aug under
+                    DataConfig.device_color_aug in training: the model
+                    makes color_aug on the device (`ops/jitter.py`)
   K, inv_K          (4, 4)
   mask              (H, W, 1)   1 = keep, 0 = erased (inpaint datasets)
   color_lab         (F, H, W, 3) with DataConfig.add_lab
@@ -13,8 +17,14 @@ Sample keys (a subset, by dataset):
 
 Each draw from the sample's RandomState comes in the JAX package's order
 (jitter?, flip?, the jitter's factors, then the erase squares), so that
-both packages make the same sample from the same seed. Decoding is PIL
-only: the JAX package's optional native loader is not ported.
+both packages make the same sample from the same seed.
+
+Frames decode through the native loader (`native_loader.py`: g++, libpng,
+libjpeg) unless TRIPLED_NATIVE_LOADER=0 or it did not build, and through
+PIL when it is off or fails on a file, as in the JAX package. Both give
+PIL's bytes after rounding; the native floats are those bytes times
+1/255, which can differ from PIL's bytes / 255 in the last bit. Each
+dataset counts its decodes by decoder (`decodes`).
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ from typing import Sequence
 import numpy as np
 
 from tripled_tpu_torch.config import DataConfig
+from tripled_tpu_torch.data import native_loader
 from tripled_tpu_torch.data.transforms import (
     ColorJitter,
     load_image,
@@ -33,13 +44,17 @@ from tripled_tpu_torch.data.transforms import (
     resize_antialias,
     to_float,
 )
+from tripled_tpu_torch.ops.jitter import sample_jitter_params
 
 
 class _DecodeCache:
     """Bounded in-RAM cache of decoded and resized frames, kept as uint8.
-    PIL's resize gives uint8, so this is lossless. Frames are cached
-    unflipped and mirrored on read. Insertion stops at the byte cap;
-    thread-safe under the loader's worker pool."""
+    PIL's resize gives uint8, so this is lossless for PIL, and the native
+    loader's frames round to the same bytes: with the cache on, both
+    decoders give the same sample. Frames are cached unflipped and mirrored
+    on read (the native loader mirrors after its resize, so this is
+    bit-identical). Insertion stops at the byte cap; thread-safe under the
+    loader's worker pool."""
 
     def __init__(self, cap_bytes: int):
         self.cap = cap_bytes
@@ -87,9 +102,14 @@ class MonoDataset:
         self.is_train = is_train
         self.img_ext = img_ext
         self.jitter = ColorJitter()
-        if self.cfg.device_color_aug or self.cfg.ship_uint8:
-            raise ValueError("DataConfig.device_color_aug and ship_uint8 are not ported yet "
-                             "(ROADMAP.md §1 item 6)")
+        self.use_native = (os.environ.get("TRIPLED_NATIVE_LOADER", "1") == "1"
+                           and native_loader.available())
+        # frames decoded by each decoder, cache hits not counted
+        self.decodes = {"native": 0, "pil": 0}
+        self._count_lock = threading.Lock()
+        if self.cfg.ship_uint8 and is_train and not self.cfg.device_color_aug:
+            raise ValueError("DataConfig.ship_uint8 requires device_color_aug=True for training "
+                             "datasets (the host ColorJitter needs float frames)")
         cap_mb = int(os.environ.get("TRIPLED_DECODE_CACHE_MB", str(self.cfg.decode_cache_mb)))
         self._decode_cache = _DecodeCache(cap_mb << 20) if cap_mb > 0 else None
         self.gt_depths = None
@@ -120,38 +140,58 @@ class MonoDataset:
         side = line[2] if len(line) == 3 else None
         return folder, frame_index, side
 
-    def _load_resized(self, folder, frame_index, side, do_flip) -> np.ndarray:
-        """One frame as float32 (H, W, 3) in [0, 1], resized and optionally
-        flipped, through the decode cache when it is on."""
+    def _load_resized(self, folder, frame_index, side, do_flip, as_uint8=False) -> np.ndarray:
+        """One frame as float32 (H, W, 3) in [0, 1], or uint8 when
+        `as_uint8`, resized and optionally flipped, through the decode cache
+        when it is on. Cache fills and uint8 frames are rounded as
+        rint(x * 255), so they sit on PIL's uint8 grid whichever decoder
+        ran."""
         cache = self._decode_cache
         if cache is None:
-            return self._decode(folder, frame_index, side, do_flip)
+            dec = self._decode(folder, frame_index, side, do_flip)
+            return np.rint(dec * 255.0).astype(np.uint8) if as_uint8 else dec
         key = self.get_image_path(folder, frame_index, side)
         hit = cache.get(key)
         if hit is None:
             hit = np.rint(self._decode(folder, frame_index, side, False) * 255.0).astype(np.uint8)
             cache.put(key, hit)
-        img = hit.astype(np.float32) / 255.0
+        img = hit if as_uint8 else hit.astype(np.float32) / 255.0
         return img[:, ::-1] if do_flip else img
 
+    def _count(self, decoder: str) -> None:
+        with self._count_lock:
+            self.decodes[decoder] += 1
+
     def _decode(self, folder, frame_index, side, do_flip) -> np.ndarray:
+        """The native loader first, then PIL where it is off or fails."""
+        if self.use_native:
+            try:
+                img = native_loader.load_image(self.get_image_path(folder, frame_index, side),
+                                               self.height, self.width, flip=do_flip)
+            except IOError:
+                pass
+            else:
+                self._count("native")
+                return img
         img = self.get_color(folder, frame_index, side, do_flip)
+        self._count("pil")
         return to_float(resize_antialias(img, self.height, self.width))
 
     def load_frames(self, index, do_flip):
         """The sample's frames; a missing neighbour falls back to the
         centre frame."""
         folder, frame_index, side = self.parse_line(index)
+        u8 = self.cfg.ship_uint8
         frames = []
         for i in self.frame_ids:
             if i == "s":
                 other = {"r": "l", "l": "r"}[side]
-                frames.append(self._load_resized(folder, frame_index, other, do_flip))
+                frames.append(self._load_resized(folder, frame_index, other, do_flip, u8))
             else:
                 try:
-                    frames.append(self._load_resized(folder, frame_index + i, side, do_flip))
+                    frames.append(self._load_resized(folder, frame_index + i, side, do_flip, u8))
                 except Exception:
-                    frames.append(self._load_resized(folder, frame_index, side, do_flip))
+                    frames.append(self._load_resized(folder, frame_index, side, do_flip, u8))
         return frames, side
 
     def sample(self, index: int, rng: np.random.RandomState) -> dict:
@@ -159,8 +199,12 @@ class MonoDataset:
         do_flip = self.is_train and rng.rand() > 0.5
 
         frames, side = self.load_frames(index, do_flip)
-        colors = np.stack(frames)  # (F, H, W, 3) float32 in [0, 1]
-        if do_color_aug:
+        colors = np.stack(frames)  # (F, H, W, 3) float32 in [0, 1], or uint8
+        u8 = colors.dtype == np.uint8
+        jitter_params = None
+        if self.is_train and self.cfg.device_color_aug:
+            jitter_params = sample_jitter_params(rng, self.jitter, do_color_aug)
+        elif do_color_aug:
             aug = self.jitter.sample(rng)
             color_aug = np.stack([aug(c) for c in colors])
         else:
@@ -172,11 +216,14 @@ class MonoDataset:
         inv_K = np.linalg.pinv(K).astype(np.float32)
 
         out = {
-            "color": colors.astype(np.float32),
+            "color": colors if u8 else colors.astype(np.float32),
             "K": K.astype(np.float32),
             "inv_K": inv_K,
-            "color_aug": color_aug.astype(np.float32),
         }
+        if jitter_params is not None:
+            out["jitter_params"] = jitter_params
+        else:
+            out["color_aug"] = color_aug if u8 else color_aug.astype(np.float32)
         if self.cfg.add_lab:
             # PIL ImageCms Lab of each frame, scaled to [0, 1] per channel as
             # a uint8 Lab image is
@@ -185,7 +232,8 @@ class MonoDataset:
             tf = ImageCms.buildTransformFromOpenProfiles(
                 ImageCms.createProfile("sRGB"), ImageCms.createProfile("LAB"), "RGB", "LAB")
             labs = [np.asarray(ImageCms.applyTransform(
-                Image.fromarray((c * 255).astype(np.uint8)), tf), np.float32) / 255.0
+                Image.fromarray(c if u8 else (c * 255).astype(np.uint8)), tf),
+                np.float32) / 255.0
                 for c in colors]
             out["color_lab"] = np.stack(labs)
         if "s" in self.frame_ids:

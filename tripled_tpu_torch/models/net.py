@@ -4,7 +4,11 @@ mono_fm_joint_inpaint_disentangle included.
 
 Inputs are a dict of stacked tensors in the JAX package's layout, frame axis
 F in `cfg.frame_ids` order (index 0 is the target frame):
-  color, color_aug  (B, F, H, W, 3) in [0, 1]
+  color, color_aug  (B, F, H, W, 3) in [0, 1], or uint8 (divided by 255
+                    here, DataConfig.ship_uint8)
+  jitter_params     (B, 9) in place of color_aug in training
+                    (DataConfig.device_color_aug): color_aug is made here
+                    from color (`ops/jitter.py`)
   K, inv_K          (B, 4, 4)
   mask              (B, H, W, 1) inpaint erase mask, 1 = keep (inpaint only)
 In training mode the forward returns (outputs, loss_dict) with scalar
@@ -44,6 +48,7 @@ from tripled_tpu_torch.ops.geometry import (
     warp_coords,
 )
 from tripled_tpu_torch.ops.image import resize_bilinear
+from tripled_tpu_torch.ops.jitter import color_jitter
 from tripled_tpu_torch.ops.losses import (
     erased_mean,
     feature_regularization_loss,
@@ -54,6 +59,15 @@ from tripled_tpu_torch.ops.losses import (
 from tripled_tpu_torch.ops.photometric import fused_min_reprojection
 from tripled_tpu_torch.ops.warp import grid_sample
 from tripled_tpu_torch.presets import canonicalize
+
+
+def frames_to_float(x: torch.Tensor) -> torch.Tensor:
+    """uint8 frames -> float32 in [0, 1], divided by 255 as the JAX package
+    and the host path's numpy divide. The divisor is a tensor on x's device:
+    CUDA turns a divide by a Python number into a multiply by its
+    reciprocal, which rounds 126 of the 256 quotients the other way."""
+    x = x.to(torch.float32)
+    return x / x.new_full((), 255.0)
 
 
 def _nchw(x):
@@ -112,6 +126,12 @@ class TripleDNet(nn.Module):
     def forward(self, inputs: Dict[str, torch.Tensor], generator: torch.Generator | None = None):
         """`generator` draws the decoder's dropout in training."""
         c = self.cfg
+        inputs = dict(inputs)
+        for key in ("color", "color_aug"):
+            if key in inputs and inputs[key].dtype == torch.uint8:
+                inputs[key] = frames_to_float(inputs[key])
+        if self.training and "jitter_params" in inputs:
+            inputs["color_aug"] = color_jitter(inputs["color"], inputs["jitter_params"])
         scene = self.depth_encoder(_nchw(self._cd(inputs["color_aug"][:, 0])))
         depth_emb = [identity_partial(f) if flag else f
                      for f, flag in zip(scene, c.disentangle_layers)]

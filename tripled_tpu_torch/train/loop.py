@@ -5,7 +5,8 @@ threads and copied to the device ahead of the step, the training step,
 the loss dict read and logged every `log_interval` steps, a checkpoint
 every `checkpoint_interval` epochs and the Eigen eval hook every
 `validate_interval`. Each epoch also logs the host time the loop waited
-for its batches.
+for its batches, and how many frames each decoder (the native loader,
+PIL) has decoded so far.
 """
 
 from __future__ import annotations
@@ -52,6 +53,10 @@ def train_mono(
 
     if train_dataset is None:
         train_dataset = get_dataset(cfg.data, training=True)
+    decodes = getattr(train_dataset, "decodes", None)
+    if decodes is not None:
+        log.info("frames decode with %s", "the native loader" if train_dataset.use_native
+                 else "PIL (the native loader is off or did not build)")
     loader = BatchLoader(train_dataset, batch_size=cfg.data.batch_size,
                          shuffle=cfg.data.shuffle, seed=cfg.seed)
     # before the optimizer: its LR schedule counts epochs in these steps
@@ -113,9 +118,11 @@ def train_mono(
             log.info("epoch %d done in %.1fs (%.2f imgs/s); waited %.3f s for batches "
                      "(%.1f ms per step)", epoch, dt, n_imgs / max(dt, 1e-9), wait_s,
                      1e3 * wait_s / max(n_steps, 1))
-            mlogger.log(optimizer.count, {"seconds": dt, "steps": n_steps,
-                                          "images_per_s": n_imgs / max(dt, 1e-9),
-                                          "loader_wait_s": wait_s}, prefix="epoch/")
+            row = {"seconds": dt, "steps": n_steps, "images_per_s": n_imgs / max(dt, 1e-9),
+                   "loader_wait_s": wait_s}
+            if decodes is not None:
+                row.update({f"decodes_{k}": v for k, v in decodes.items()})
+            mlogger.log(optimizer.count, row, prefix="epoch/")
 
             if (epoch + 1) % cfg.checkpoint_interval == 0:
                 path = ckpt.save_checkpoint(cfg.work_dir, state, epoch + 1)
