@@ -67,6 +67,21 @@ Phases, each printed as one JSON line with its wall time:
            ms/step after each epoch's first, images/s, the host's wait per
            step and per epoch, peak memory, the decoders' counts, and the
            two runs' first losses against each other
+  reference_distill  (after reference_flagship) each of the five
+           distillation presets, its config cut to the small step, on the
+           card against the CPU in float32, the bound widened by three
+           times the card's own spread (a second card run)
+  distill  (after flagship_bf16) a line per distillation preset: its step at
+           its config's values, loaded from the port's copy of the config
+           (R50 depth, R18 pose, 192x640, batch 12, 16 erased 16x16
+           squares, float32, remat off) from random weights: 1 warm-up
+           step, 3 timed steps, ms/step, images/s, peak memory, every loss
+           term of the first step (the preset's own included), the
+           photometric launches, and the profile and step split
+  train_cli_distill  (after train_cli_fast) the train CLI on the port's
+           `configs/cfg_kitti_fm_joint_inpaint_disentangle_distill_colorize.py`
+           for 1 epoch with its eval hook on the 98-frame tree: ms/step
+           after the first, images/s, the host's wait per step
   probe    `python -m tripled_tpu_torch.dev.element_probe`'s main() on the card
 Then the kernel summary line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Any failure raises and exits
@@ -310,33 +325,42 @@ REFERENCE_TOL = {"float32": {"smooth": 1e-4, "loss": 1e-4, "grad_norm": 1e-4},
                  "bfloat16": {"smooth": 5e-2, "loss": 5e-3, "grad_norm": 1e-2}}
 
 
-def reference_step(dev, seed, cfg, batch, height, width, **input_kw):
+def reference_step(dev, seed, cfg, batch, height, width, spread=False, **input_kw):
     """A small training step on the card (kernels) and on the CPU (plain
-    versions) from the same weights and inputs."""
+    versions) from the same weights and inputs. With `spread`, the card
+    step runs twice and each metric's bound is widened by three times the
+    card's own run-to-run spread (cuDNN's small steps are not
+    deterministic)."""
     from tripled_tpu_torch.config import OptimConfig
     from tripled_tpu_torch.train.state import create_train_state
     from tripled_tpu_torch.train.step import make_train_step
     from tripled_tpu_torch.utils.inputs import random_train_inputs
 
     metrics = {}
-    for device in ("cpu", dev):
+    for label, device in [("cpu", "cpu"), ("card", dev)] + ([("card again", dev)] if spread else []):
         state = create_train_state(cfg, OptimConfig(warmup_iters=2), 100, seed=seed, device=device)
         step = make_train_step(state.model, state.optimizer)
         inputs = random_train_inputs(batch, height, width, seed, device=device, **input_kw)
-        metrics[str(device)] = {k: float(v) for k, v in step(inputs).items()}
-    cpu, gpu = metrics["cpu"], metrics[str(dev)]
+        metrics[label] = {k: float(v) for k, v in step(inputs).items()}
+    cpu, gpu = metrics["cpu"], metrics["card"]
+    again = metrics.get("card again", gpu)
     rel = {k: abs(gpu[k] - cpu[k]) / max(abs(cpu[k]), 1e-12) for k in cpu}
+    rel_spread = {k: abs(again[k] - gpu[k]) / max(abs(cpu[k]), 1e-12) for k in cpu}
     tol = REFERENCE_TOL[cfg.compute_dtype]
     bad = {k: r for k, r in rel.items()
-           if r > tol["grad_norm" if k == "grad_norm" else
-                      "smooth" if k.startswith("smooth_loss") else "loss"]}
+           if r > 3 * rel_spread[k] + tol["grad_norm" if k == "grad_norm" else
+                                        "smooth" if k.startswith("smooth_loss") else "loss"]}
     if bad or not all(math.isfinite(v) for v in gpu.values()):
         raise AssertionError(f"card step disagrees with the CPU step: {bad} {metrics}")
-    return {"compute_dtype": cfg.compute_dtype, "tolerance": tol,
-            "max_rel_diff_losses": max(r for k, r in rel.items() if k != "grad_norm"),
-            "max_rel_diff_losses_but_smooth": max(
-                r for k, r in rel.items() if k != "grad_norm" and not k.startswith("smooth_loss")),
-            "rel_diff_grad_norm": rel["grad_norm"], "keys": sorted(cpu)}
+    out = {"compute_dtype": cfg.compute_dtype, "tolerance": tol,
+           "max_rel_diff_losses": max(r for k, r in rel.items() if k != "grad_norm"),
+           "max_rel_diff_losses_but_smooth": max(
+               r for k, r in rel.items() if k != "grad_norm" and not k.startswith("smooth_loss")),
+           "rel_diff_grad_norm": rel["grad_norm"], "keys": sorted(cpu)}
+    if spread:
+        out["rel_diff"] = rel
+        out["card_rel_spread"] = rel_spread
+    return out
 
 
 # kernel-name patterns -> family, first match wins
@@ -518,15 +542,17 @@ config = dataclasses.replace(
     log_interval=1,
 )
 """
-BASE_CONFIG = os.path.join(HERE, "tripled_tpu_torch", "configs", "cfg_kitti_tripled.py")
+CONFIG_DIR = os.path.join(HERE, "tripled_tpu_torch", "configs")
+BASE_CONFIG = os.path.join(CONFIG_DIR, "cfg_kitti_tripled.py")
 
 
-def write_cli_config(path, tree, epochs, work, model="", data=""):
-    """A config file: cfg_kitti_tripled.py pointed at `tree`, with `epochs`
-    epochs, `work` as its work dir, a row in metrics.jsonl at every step,
-    and `model` / `data` appended to the model's and data's replacements."""
+def write_cli_config(path, tree, epochs, work, model="", data="", base=BASE_CONFIG):
+    """A config file: `base` (cfg_kitti_tripled.py) pointed at `tree`, with
+    `epochs` epochs, `work` as its work dir, a row in metrics.jsonl at every
+    step, and `model` / `data` appended to the model's and data's
+    replacements."""
     with open(path, "w") as f:
-        f.write(CLI_CONFIG.format(base=BASE_CONFIG, root=tree["root"], gt=tree["gt_depth_path"],
+        f.write(CLI_CONFIG.format(base=base, root=tree["root"], gt=tree["gt_depth_path"],
                                   epochs=epochs, work=work, model=model, data=data))
     return path
 
@@ -1057,6 +1083,146 @@ def flagship_phases(photometric, dev, seed, card, model_cfg, data_cfg, optim_cfg
     return launches_by_path, flagship_ms
 
 
+# each distillation preset: the port's copy of the config that names it,
+# and the loss term it adds
+DISTILL = {
+    "mono_fm_joint_inpaint_distill_gs": (
+        "cfg_kitti_fm_joint_inpaint_distill_gs.py", "depth_to_gray_loss"),
+    "mono_fm_joint_inpaint_distill_colorize": (
+        "cfg_kitti_fm_joint_inpaint_distill_colorize.py", "colorize_loss"),
+    "mono_fm_joint_inpaint_disentangle_distill_colorize": (
+        "cfg_kitti_fm_joint_inpaint_disentangle_distill_colorize.py", "colorize_loss"),
+    "mono_fm_joint_inpaint_disentangle_distill_sep_colorize": (
+        "cfg_kitti_fm_joint_inpaint_disentangle_distill_full_colorize.py",
+        "distill_colorize_loss"),
+    "mono_fm_joint_inpaint_disentangle_distill_sep_inpaint": (
+        "cfg_kitti_fm_joint_inpaint_disentangle_distill_full_inpaint.py",
+        "distill_inpaint_loss"),
+}
+# the preset the train CLI runs: the joint extractor, the ImageDecoder and
+# the colorize head, the heaviest of the three without a separate encoder
+DISTILL_CLI = "mono_fm_joint_inpaint_disentangle_distill_colorize"
+
+
+def distill_config(name):
+    from tripled_tpu_torch.config import load_config
+
+    cfg = load_config(os.path.join(CONFIG_DIR, DISTILL[name][0]))
+    if cfg.model.name != name:
+        raise AssertionError(f"{DISTILL[name][0]} names {cfg.model.name}, not {name}")
+    return cfg
+
+
+def reference_distill(dev, seed):
+    """Each distillation preset's config cut to a small step (R18
+    everywhere, 64x160, the pose net at 32x96, batch 2, 4 erased 8x8
+    squares, dropout off), on the card against the CPU, float32, each
+    metric's bound widened by the card's own spread."""
+    out = {}
+    for name, (_, term) in DISTILL.items():
+        model = dataclasses.replace(
+            distill_config(name).model, height=64, width=160, pose_height=32, pose_width=96,
+            depth_num_layers=18, pose_num_layers=18, extractor_num_layers=18,
+            colorize_num_layers=18, inpaint_num_layers=18, depth_dropout_rate=0.0)
+        out[name] = reference_step(dev, seed, model, 2, 64, 160, spread=True, erase_count=4,
+                                   erase_shape=(8, 8))
+        if term not in out[name]["keys"]:
+            raise AssertionError(f"{name}: no {term} in {out[name]['keys']}")
+    return out
+
+
+def distill_phases(photometric, dev, seed, card):
+    """Phase distill, a line per preset: its step at its config's values
+    (R50 depth, R18 pose, 192x640, batch 12, kitti_inpaint's 16 erased
+    16x16 squares, float32, remat off as configured) from random weights
+    through `train_path`, then its profile and step split; returns the
+    photometric launches by path."""
+    launches = {}
+    for name, (config, term) in DISTILL.items():
+        t0 = time.perf_counter()
+        cfg = distill_config(name)
+        state, step, batch, gen, info = train_path(photometric, dev, seed, cfg.model, cfg.data,
+                                                   cfg.optim)
+        if term not in info["first_step_metrics"]:
+            raise AssertionError(f"{name}: no {term} in {sorted(info['first_step_metrics'])}")
+        launches[f"distill {name}"] = info["launches"]
+        profile = profile_step(step, batch, gen)
+        phase("distill", t0, preset=name, config=f"tripled_tpu_torch/configs/{config}",
+              new_term=term, card=card, profile=profile,
+              step_split_ms=split_step(step, state.model, batch, gen), **info)
+        del state, step, batch, gen
+        torch.cuda.empty_cache()
+    return launches
+
+
+def train_cli_distill_path(photometric, dev, tree, tmp):
+    """The train CLI on the port's copy of DISTILL_CLI's config for 1 epoch
+    with its eval hook, on `tree`: only the data paths, the split, epochs,
+    work dir and log interval replaced. The photometric launch counts are
+    set to 0 before the run and read after it."""
+    from tripled_tpu_torch.cli import train
+    from tripled_tpu_torch.config import load_config
+    from tripled_tpu_torch.eval.depth_metrics import METRIC_NAMES
+
+    config_name, term = DISTILL[DISTILL_CLI]
+    base = os.path.join(CONFIG_DIR, config_name)
+    work = os.path.join(tmp, "work_distill")
+    config = write_cli_config(os.path.join(tmp, "cfg_distill.py"), tree, 1, work, base=base)
+    cfg, reference = load_config(config), load_config(base)
+    if (cfg.model, cfg.data.name, cfg.data.batch_size, cfg.data.erase_count,
+            cfg.data.erase_shape) != (reference.model, reference.data.name,
+                                      reference.data.batch_size, reference.data.erase_count,
+                                      reference.data.erase_shape):
+        raise AssertionError(f"the CLI's config differs from {config_name} beyond the data")
+    steps = (tree["num_frames"] - 2) // cfg.data.batch_size
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in photometric.launches:
+        photometric.launches[k] = 0
+    photometric.launches_by_dtype.clear()
+    gc.collect()
+    with env_vars(TRIPLED_SPLITS_DIR=tree["splits_dir"]):
+        t0 = time.perf_counter()
+        state, history = train.main(["--config", config, "--device", str(dev)])
+        run_s = time.perf_counter() - t0
+    launches, by_dtype = dict(photometric.launches), dict(photometric.launches_by_dtype)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    count = state.optimizer.count
+    del state
+    torch.cuda.empty_cache()
+    with open(os.path.join(work, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    train_rows = [r for r in rows if "train/loss" in r]
+    epoch_rows = [r for r in rows if "epoch/loader_wait_s" in r]
+    per_step = len(cfg.model.scales)
+    if (count != steps or len(train_rows) != steps
+            or launches != {"fwd": per_step * steps, "bwd": per_step * steps}
+            or by_dtype != {f"{k} float32": v for k, v in launches.items()}):
+        raise AssertionError(f"{count} steps, {len(train_rows)} rows, launches {launches} "
+                             f"{by_dtype}; expected {steps} float32 steps")
+    if not all(f"train/{term}" in r for r in train_rows):
+        raise AssertionError(f"no train/{term} in the logged rows")
+    bad = [k for r in train_rows for k, v in r.items() if not math.isfinite(v)]
+    if bad or [h["epoch"] for h in history] != [1] or not all(
+            math.isfinite(history[0][k]) for k in METRIC_NAMES):
+        raise AssertionError(f"non-finite metrics {bad} or eval hook {history}")
+    step_ms = step_times(train_rows, steps)
+    ms = sum(step_ms) / len(step_ms)
+    waits = [r["epoch/loader_wait_s"] for r in epoch_rows]
+    return {"config": f"tripled_tpu_torch/configs/{config_name} (R50/R18/R50 192x640 batch 12 "
+            "f32, kitti_inpaint's 16 erased 16x16 squares); data, split, epochs, work dir and "
+            "log interval replaced", "tree": {"frames": tree["num_frames"],
+                                               "height": tree["height"], "width": tree["width"]},
+            "steps": steps, "run_seconds": run_s, "ms_per_step_after_first": step_ms,
+            "ms_per_step": ms, "images_per_s": cfg.data.batch_size / (ms / 1e3),
+            "loader_wait_s": waits, "loader_wait_ms_per_step": 1e3 * sum(waits) / steps,
+            "decodes": decoder_counts(epoch_rows[-1]),
+            "first_step_losses": {k[len("train/"):]: v for k, v in train_rows[0].items()
+                                  if k.startswith("train/")},
+            "eval_hook": {k: history[0][k] for k in METRIC_NAMES},
+            "eval_images_per_s": [r["val/eval_fps"] for r in rows if "val/eval_fps" in r],
+            "peak_memory_gib": peak_gib, "launches": launches, "launches_by_dtype": by_dtype}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1126,6 +1292,10 @@ def main():
     phase("reference_flagship", t0, **{dtype: reference_step(
         dev, args.seed, dataclasses.replace(small_flagship, compute_dtype=dtype), 2, 64, 160,
         erase_count=4, erase_shape=(8, 8)) for dtype in ("float32", "bfloat16")})
+    t0 = time.perf_counter()
+    phase("reference_distill", t0, tolerance=REFERENCE_TOL["float32"],
+          bound="3 x the card's run-to-run spread + tolerance x |cpu|",
+          presets=reference_distill(dev, args.seed))
 
     t0 = time.perf_counter()
     model_cfg, data_cfg, optim_cfg = mono_fm_bench()
@@ -1150,7 +1320,8 @@ def main():
 
     launches_by_path, flagship_ms = flagship_phases(photometric, dev, args.seed, card,
                                                     flagship_cfg, flagship_data, flagship_optim)
-    launches_by_path = {"train": train_launches, **launches_by_path}
+    launches_by_path = {"train": train_launches, **launches_by_path,
+                        **distill_phases(photometric, dev, args.seed, card)}
 
     with tempfile.TemporaryDirectory(prefix="train_cli_") as tmp:
         t0 = time.perf_counter()
@@ -1185,6 +1356,10 @@ def main():
               "device_color_aug, ship_uint8 and decode_cache_mb=4096",
               tree={"frames": tree["num_frames"], "height": tree["height"],
                     "width": tree["width"]}, **fast)
+        t0 = time.perf_counter()
+        distill_cli = train_cli_distill_path(photometric, dev, tree, tmp)
+        launches_by_path["train_cli_distill"] = distill_cli["launches"]
+        phase("train_cli_distill", t0, card=card, preset=DISTILL_CLI, **distill_cli)
 
     t0 = time.perf_counter()
     for k in probe.launches:

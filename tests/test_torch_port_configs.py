@@ -1,6 +1,6 @@
 """The port's experiment configs against the JAX package's, field by field:
 `tripled_tpu_torch/configs/X.py` through the port's `load_config` and
-`configs/X.py` through the JAX one, for the 7 configs that name ported
+`configs/X.py` through the JAX one, for the 12 configs that name ported
 presets. Every DataConfig, OptimConfig and top-level ExperimentConfig
 field is equal, and so is every field of the port's ModelConfig, before
 and after each package's `canonicalize`. The LR schedule is held against
@@ -32,7 +32,11 @@ torch.set_num_threads(1)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 CONFIGS = ["cfg_folder", "cfg_kitti_fm", "cfg_kitti_fm_joint", "cfg_kitti_fm_joint_inpaint",
-           "cfg_kitti_fm_joint_inpaint_disentangle", "cfg_kitti_fm_refine", "cfg_kitti_tripled"]
+           "cfg_kitti_fm_joint_inpaint_disentangle", "cfg_kitti_fm_refine", "cfg_kitti_tripled",
+           "cfg_kitti_fm_joint_inpaint_distill_gs", "cfg_kitti_fm_joint_inpaint_distill_colorize",
+           "cfg_kitti_fm_joint_inpaint_disentangle_distill_colorize",
+           "cfg_kitti_fm_joint_inpaint_disentangle_distill_full_colorize",
+           "cfg_kitti_fm_joint_inpaint_disentangle_distill_full_inpaint"]
 
 
 def _load_jax(name):

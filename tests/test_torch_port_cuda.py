@@ -37,7 +37,17 @@ fast-path batch (uint8 frames and jitter params) in float32 with TF32 off
 on the card against the CPU: each metric within three times the card's
 run-to-run spread (a second card run) plus 1e-4 of its value,
 chip_smoke.py's float32 bound for the small step on the card against the
-CPU (seen there: losses 8.1e-7, gradient norm 3.6e-6).
+CPU (seen there: losses 8.1e-7, gradient norm 3.6e-6). The same bound
+holds the small steps of two distillation presets, `_distill_gs` (no
+extractor, the grayscale head on Lab L) and `_sep_colorize` (the separate
+colorize encoder and decoder), each from the port's copy of its config
+cut to R18, 64x160, the pose net at 32x96, batch 2, 4 erased 8x8 squares.
+
+The colour conversions (`ops/color.py`) on the card against the CPU in
+float32: within 2e-6 of the output's largest magnitude, the bound the port
+holds against the JAX package (tests/test_torch_port_color.py). The divides
+are true divides and the dots are carried in float64 on both devices; the
+powers come from two maths libraries.
 """
 
 import math
@@ -463,3 +473,68 @@ def test_uint8_frames_divide_on_the_card_as_on_the_cpu(cuda_device):
     assert got.dtype == torch.float32
     np.testing.assert_array_equal(got.cpu().numpy(), want)
     np.testing.assert_array_equal(frames_to_float(x).numpy(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rgb2xyz", "xyz2rgb", "xyz2lab", "lab2xyz", "rgb2lab",
+                                  "lab2rgb", "rgb_to_l", "rgb_to_gray"])
+def test_color_on_the_card_matches_the_cpu(name, cuda_device):
+    from tripled_tpu_torch.ops import color
+
+    rgb = torch.from_numpy(np.random.RandomState(0).rand(4, 64, 160, 3).astype(np.float32))
+    rgb[0, 0, :4] = torch.tensor([0.0, 1.0, 0.04045, 0.0031308]).unsqueeze(-1)
+    x = {"xyz2rgb": color.rgb2xyz(rgb), "xyz2lab": color.rgb2xyz(rgb),
+         "lab2xyz": color.xyz2lab(color.rgb2xyz(rgb)), "lab2rgb": color.rgb2lab(rgb)}.get(name, rgb)
+    want = getattr(color, name)(x)
+    got = getattr(color, name)(x.to(cuda_device))
+    assert got.is_cuda and got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert (got.cpu() - want).abs().max().item() <= 2e-6 * want.abs().max().item()
+
+
+# the port's copies of the two presets' configs
+DISTILL_CONFIGS = {
+    "mono_fm_joint_inpaint_distill_gs": "cfg_kitti_fm_joint_inpaint_distill_gs.py",
+    "mono_fm_joint_inpaint_disentangle_distill_sep_colorize":
+        "cfg_kitti_fm_joint_inpaint_disentangle_distill_full_colorize.py",
+}
+
+
+def _small_distill_step(device, name):
+    """One step of the preset's config cut to the small step, from seed 0."""
+    import dataclasses
+    import pathlib
+
+    from tripled_tpu_torch.config import OptimConfig, load_config
+    from tripled_tpu_torch.train.state import create_train_state
+    from tripled_tpu_torch.train.step import make_train_step
+    from tripled_tpu_torch.utils.inputs import random_train_inputs
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "tripled_tpu_torch" / "configs"
+    cfg = dataclasses.replace(
+        load_config(str(path / DISTILL_CONFIGS[name])).model, height=64, width=160,
+        pose_height=32, pose_width=96, depth_num_layers=18, pose_num_layers=18,
+        extractor_num_layers=18, colorize_num_layers=18, depth_dropout_rate=0.0)
+    state = create_train_state(cfg, OptimConfig(warmup_iters=2), 100, seed=0, device=device)
+    batch = random_train_inputs(2, 64, 160, seed=0, erase_count=4, erase_shape=(8, 8),
+                                device=device)
+    metrics = make_train_step(state.model, state.optimizer)(batch)
+    return {k: float(v) for k, v in metrics.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(DISTILL_CONFIGS))
+def test_distill_step_on_the_card_matches_the_cpu(name, cuda_device, monkeypatch):
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    for k in photometric.launches:
+        photometric.launches[k] = 0
+    gpu = _small_distill_step(cuda_device, name)
+    assert photometric.launches == {"fwd": 4, "bwd": 4}
+    again = _small_distill_step(cuda_device, name)
+    cpu = _small_distill_step("cpu", name)
+    assert set(gpu) == set(cpu) == set(again)
+    assert {"depth_to_gray_loss", "distill_colorize_loss"} & set(cpu)
+    for k in cpu:
+        assert math.isfinite(gpu[k])
+        spread = abs(again[k] - gpu[k])
+        assert abs(gpu[k] - cpu[k]) <= 3 * spread + 1e-4 * abs(cpu[k]), (k, gpu[k], cpu[k])

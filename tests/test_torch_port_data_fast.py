@@ -7,7 +7,8 @@ combination. Every key is compared, `jitter_params` and `mask` included,
 with its dtype. Also: the ValueError for `ship_uint8` without
 `device_color_aug` in training, the decoder counts (native, and PIL where
 the native loader is off or cannot read a file), and uint8 batches through
-`BatchLoader` and `prefetch_to_device` on the CPU.
+`BatchLoader` and `prefetch_to_device` on the CPU. The JAX native loader
+is steadied first (`test_torch_port_native_loader.py`).
 """
 
 import os
@@ -17,6 +18,7 @@ import pytest
 import torch
 from PIL import Image
 
+from test_torch_port_native_loader import steady_jax_native_loader
 from tripled_tpu.config import DataConfig as JaxDataConfig
 from tripled_tpu.data import datasets as jax_datasets
 from tripled_tpu.data.get_dataset import get_dataset as jax_get_dataset
@@ -38,6 +40,12 @@ MODES = {"host": (False, False), "device_jitter": (True, False), "uint8": (True,
 @pytest.fixture(autouse=True)
 def _env(monkeypatch):
     monkeypatch.delenv("TRIPLED_DECODE_CACHE_MB", raising=False)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native_loader():
+    # the JAX loader's in-place build can race other workers' at collection
+    steady_jax_native_loader()
 
 
 @pytest.fixture(scope="module")

@@ -7,6 +7,18 @@ missing or undecodable file raises IOError, and a batch names how many of
 its images failed; the library is built under `build/tripled_tpu_torch/`.
 
 The file skips only where g++, png.h or jpeglib.h is missing.
+
+`steady_jax_native_loader` (also used by `test_torch_port_data_fast.py`):
+the JAX package builds its library in place at first use, with no lock
+(`tripled_tpu/data/native_loader.py:28-47`), and every pytest-xdist worker
+imports `tests/test_native_loader.py`, whose module-level `skipif` calls
+`available()`, at once on a checkout without the library: each worker runs
+g++ into the same file, and one that loads it while another is writing it
+gives up for the rest of its run. On a fresh checkout under six
+workers that failed the 25 native cases of `test_torch_port_data_fast.py`
+in one run of five. The helper rebuilds the library into a file of its
+own, moves it into place and lets the JAX module load it again; it does
+nothing where the JAX loader is already loaded.
 """
 
 import os
@@ -34,7 +46,25 @@ def _toolchain():
         ("jpeglib.h", os.path.exists("/usr/include/jpeglib.h"))] if not ok]
     if missing:
         pytest.skip(f"the native loader needs {', '.join(missing)}")
-    assert nl.available() and jax_nl.available()
+    assert nl.available() and steady_jax_native_loader()
+
+
+def steady_jax_native_loader() -> bool:
+    """Load the JAX package's native loader in this process again if its
+    first load failed, from a library built atomically; its availability."""
+    if jax_nl.available():
+        return True
+    so = jax_nl._SO
+    jax_nl._SO = f"{so}.{os.getpid()}.tmp"  # `_build` writes to `_SO`
+    try:
+        built = jax_nl._build()
+    finally:
+        tmp, jax_nl._SO = jax_nl._SO, so
+    if built:
+        os.replace(tmp, so)
+    with jax_nl._lock:
+        jax_nl._tried = False
+    return jax_nl.available()
 
 
 @pytest.fixture(scope="module")

@@ -53,7 +53,8 @@ STEPS_PER_EPOCH = 100
 LR0 = 1e-4 / 3  # warmup lr of the first update (warmup_ratio 1/3)
 # terms the JAX package reduces in float32 whatever the input dtype
 # (`tripled_tpu/ops/losses.py:37,87`), and the total that holds them
-F32_REDUCED = ("loss", "min_perceptional_loss", "auto_res_loss")
+F32_REDUCED = ("loss", "min_perceptional_loss", "auto_res_loss", "depth_to_gray_loss",
+               "colorize_loss", "distill_colorize_loss", "distill_inpaint_loss")
 TOL_F32 = dict(loss=2e-5, f32_reduced_loss=2e-5, grad_norm=1e-3, grad=5e-2, param=None,
                flip_share=0.03, stats=1e-5)
 

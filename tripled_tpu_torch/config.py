@@ -1,9 +1,16 @@
 """Frozen configuration dataclasses (`tripled_tpu/config.py`): the fields
-of the JAX package's `ModelConfig` that the mono_baseline, mono_fm and
-mono_fm_joint* training steps read, and every field of `DataConfig`,
-`OptimConfig` and `ExperimentConfig`, with the same defaults. A model
-field whose other values belong to branches not ported yet (attention or
-1x1 skips, `use_pfp`) takes only its default. Experiment configs are
+of the JAX package's `ModelConfig` that the mono_baseline, mono_fm,
+mono_fm_joint* and distillation training steps read, and every field of
+`DataConfig`, `OptimConfig` and `ExperimentConfig`, with the same
+defaults. A model field whose other values belong to branches not ported
+yet (attention or 1x1 skips, `use_pfp`) takes only its default. Not here
+yet: the map-pose, equivariant and rotation-pretext fields (`map_pose`,
+`map_output`, `map_pose_weight`, `equivariant`, `equivariant_weight`,
+`im_rot`, `pretext_resize`, `pretext_label_size`, `pretext_weight`), the
+decoder variants (`use_hr_depth`, `use_diffnet`, `depth_use_shuffle`) and
+the warp and kernel options (`warp_align_corners`, `warp_gather_dtype`,
+`warp_block_gather`, `warp_block_shape`, `warp_block_features`,
+`use_pallas_photometric`, `pool_eqmask_grad`). Experiment configs are
 python files defining `config` (`tripled_tpu_torch/configs/`), read with
 `load_config`."""
 
@@ -56,6 +63,22 @@ class ModelConfig:
     skip_connection_multiplier: float = 1.0
     auto_res_weight: float = 0.0
     use_pfp: bool = False                      # only False is ported
+
+    # distillation heads: depth to grayscale (d2g) and depth + L to ab
+    d2g_weight: float = 0.0
+    colorize_weight: float = 0.0
+    use_normal: bool = False          # the heads also see the surface normal
+    use_lab: bool = False             # the grayscale target is Lab L, not Rec.601
+    use_mask: bool = False            # the heads see the erased input, scored on the erased pixels
+    use_distill_mask: bool = False    # the sep losses are scored on the erased pixels
+
+    # separate-encoder distill variants
+    sep_colorize: bool = False
+    sep_inpaint: bool = False
+    cond_encoder: bool = False        # the depth embedding conditions the sep encoder
+    inpaint_weight: float = 0.0
+    colorize_num_layers: int = 50
+    inpaint_num_layers: int = 50
 
     # dropout on the two deepest skips of the CRP DepthDecoder; 0.0 for
     # deterministic parity runs

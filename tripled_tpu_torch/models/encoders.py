@@ -39,12 +39,14 @@ class PoseEncoder(nn.Module):
 
 
 class Extractor(nn.Module):
-    """The feature-metric extractor; unnormalised [0, 1] input."""
+    """The feature-metric extractor, and the separate colorize and inpaint
+    encoders; unnormalised input, optional additive per-stage conditioning
+    features (`ResNetFeatures`)."""
 
     def __init__(self, num_layers: int = 50, remat: bool = False):
         super().__init__()
         self.num_ch_enc = stage_channels(num_layers)
         self.encoder = ResNetFeatures(num_layers, remat=remat)
 
-    def forward(self, x, graph_stages: int = 5):
-        return self.encoder(x, graph_stages)
+    def forward(self, x, graph_stages: int = 5, cond_features=None):
+        return self.encoder(x, graph_stages, cond_features)

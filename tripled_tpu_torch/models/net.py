@@ -1,6 +1,9 @@
 """TripleDNet for the mono_baseline, mono_fm and mono_fm_joint* presets
 (`tripled_tpu/models/net.py`), the flagship
-mono_fm_joint_inpaint_disentangle included.
+mono_fm_joint_inpaint_disentangle and the five distillation presets
+included: the grayscale and ab-colorization heads on the full-resolution
+disparity (and its surface normal), and the separate colorize and inpaint
+encoder-decoder pairs.
 
 Inputs are a dict of stacked tensors in the JAX package's layout, frame axis
 F in `cfg.frame_ids` order (index 0 is the target frame):
@@ -22,13 +25,15 @@ depth encoder's and the extractor's target input, the colour decoder's
 disparities, the feature-loss operands and the photometric slabs go to
 bf16; disparities, decoded images and features come back as float32.
 Networks fed float32 (the pose networks, the extractor on the source
-frames) compute in float32 on the bf16-rounded parameters, as flax
-promotes (`models/layers.py`). The parameters are cast by the training
+frames, the distillation heads and the separate encoders and decoders)
+compute in float32 on the bf16-rounded parameters, as flax promotes
+(`models/layers.py`). The parameters are cast by the training
 step (`train/step.py`); eval-mode prediction keeps them float32.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict
 
 import torch
@@ -38,8 +43,10 @@ from tripled_tpu_torch.config import ModelConfig
 from tripled_tpu_torch.models.decoders import ColorDecoder, ImageDecoder
 from tripled_tpu_torch.models.depth_decoder import DepthDecoder
 from tripled_tpu_torch.models.encoders import DepthEncoder, Extractor, PoseEncoder
-from tripled_tpu_torch.models.layers import identity_partial
+from tripled_tpu_torch.models.layers import Conv2d, identity_partial
 from tripled_tpu_torch.models.pose_decoder import PoseDecoder
+from tripled_tpu_torch.models.resnet import _TRUNC_STD, BasicBlock
+from tripled_tpu_torch.ops.color import rgb2lab, rgb_to_gray, rgb_to_l
 from tripled_tpu_torch.ops.geometry import (
     disp_to_depth,
     invert_intrinsics,
@@ -78,6 +85,26 @@ def _nhwc(x):
     return x.permute(0, 2, 3, 1)
 
 
+class DistillHead(nn.Module):
+    """BasicBlock(in -> 32) and a 1x1 conv with bias, the grayscale and
+    colorize distillation heads (`tripled_tpu/models/net.py:109-120`).
+    flax infers the input width; here it is given. The 1x1 conv starts as
+    flax's default: lecun-normal, truncated at two standard deviations,
+    and a zero bias."""
+
+    def __init__(self, in_channels: int, out_channels: int, use_residual: bool):
+        super().__init__()
+        self.block = BasicBlock(in_channels, 32, use_residual=use_residual)
+        self.conv = Conv2d(32, out_channels, 1)
+        std = math.sqrt(1.0 / 32) / _TRUNC_STD
+        nn.init.trunc_normal_(self.conv.weight, std=std, a=-2 * std, b=2 * std)
+        nn.init.zeros_(self.conv.bias)
+
+    def forward(self, x):
+        """NHWC in and out."""
+        return _nhwc(self.conv(self.block(_nchw(x))))
+
+
 class TripleDNet(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -104,6 +131,25 @@ class TripleDNet(nn.Module):
             self.color_decoder = ColorDecoder(
                 color_ch, 3, skip_connection_multiplier=cfg.skip_connection_multiplier,
                 skip_layers=cfg.color_skip_layers, remat=cfg.remat)
+        # the heads see the disparity (with use_normal its surface normal's
+        # first two channels), the colorize head also Lab L
+        if cfg.d2g_weight > 0:
+            self.depth_to_gray = DistillHead(2 if cfg.use_normal else 1, 1,
+                                             use_residual=not cfg.use_normal)
+        if cfg.colorize_weight > 0 and not cfg.sep_colorize:
+            self.colorize_net = DistillHead(4 if cfg.use_normal else 2, 2, use_residual=False)
+        # the separate encoders are never rematerialised, their decoders are
+        # as the other decoders (`tripled_tpu/models/net.py:230-240`)
+        if cfg.sep_colorize:
+            self.colorize_encoder = Extractor(cfg.colorize_num_layers)
+            self.colorize_decoder = ColorDecoder(
+                self.colorize_encoder.num_ch_enc, 2,
+                skip_connection_multiplier=cfg.skip_connection_multiplier, remat=cfg.remat)
+        if cfg.sep_inpaint:
+            self.inpaint_encoder = Extractor(cfg.inpaint_num_layers)
+            self.inpaint_decoder = ColorDecoder(
+                self.inpaint_encoder.num_ch_enc, 3,
+                skip_connection_multiplier=cfg.skip_connection_multiplier, remat=cfg.remat)
 
     # ----------------------------------------------------------- precision
 
@@ -160,6 +206,20 @@ class TripleDNet(nn.Module):
             if c.use_image_decoder and c.img_reconstruct_weight != 0:
                 outputs["res_imgs"] = [_nhwc(x) for x in self._f32(self.image_decoder(features))]
             features = self._f32(features)
+
+        # the separate encoder-decoder pairs, fed float32 and not cast; the
+        # depth embedding conditions their encoders under cond_encoder
+        cond = depth_emb if c.cond_encoder else None
+        if c.sep_colorize:
+            lab = rgb2lab(inputs["color"][:, 0])
+            gray = lab[..., 0:1].expand(*lab.shape[:3], 3)  # L in [-1, 1], unnormalised
+            emb = self.colorize_encoder(_nchw(gray), cond_features=cond)
+            outputs["sep_colorize"] = [_nhwc(x) for x in self.colorize_decoder(emb, disps_nchw)]
+            outputs["gt_ab"] = lab[..., 1:]
+        if c.sep_inpaint:
+            emb = self.inpaint_encoder(_nchw(inputs["color"][:, 0] * inputs["mask"]),
+                                       cond_features=cond)
+            outputs["sep_inpaint"] = [_nhwc(x) for x in self.inpaint_decoder(emb, disps_nchw)]
 
         return outputs, self._compute_losses(inputs, outputs, features)
 
@@ -279,4 +339,65 @@ class TripleDNet(nn.Module):
         if c.auto_res_weight > 0 and "auto_res" in outputs:
             loss_dict["auto_res_loss"] = (
                 perceptional_loss(target, outputs["auto_res"][0]).mean() * c.auto_res_weight)
+
+        if c.d2g_weight > 0:
+            loss_dict["depth_to_gray_loss"] = self._distill_gs_loss(inputs, outputs)
+        if c.colorize_weight > 0 and not c.sep_colorize:
+            loss_dict["colorize_loss"] = self._distill_colorize_loss(inputs, outputs)
+        # the colorize decoder's sigmoid output in [0, 1] is scored against
+        # ab in [-1, 1], as in the JAX package
+        if c.sep_colorize and c.colorize_weight > 0:
+            loss_dict["distill_colorize_loss"] = self._sep_loss(
+                outputs["gt_ab"], outputs["sep_colorize"][0], mask) * c.colorize_weight
+        if c.sep_inpaint and c.inpaint_weight > 0:
+            loss_dict["distill_inpaint_loss"] = self._sep_loss(
+                target, outputs["sep_inpaint"][0], mask) * c.inpaint_weight
         return loss_dict
+
+    def _sep_loss(self, gt, pred, mask):
+        l = perceptional_loss(gt, pred)
+        return erased_mean(l, mask) if self.cfg.use_distill_mask and mask is not None else l.mean()
+
+    # ---------------------------------------------------------- distill
+
+    def _full_res_disp(self, outputs):
+        return resize_bilinear(outputs["disps"][0], self.cfg.height, self.cfg.width)
+
+    def _surface_normal(self, disp):
+        """(normal + 1) / 2 of the depth map, from its central differences
+        (one-sided at the borders), NHWC."""
+        _, depth = disp_to_depth(disp, self.cfg.min_depth, self.cfg.max_depth)
+        d = depth[..., 0]
+        dy, dx = torch.gradient(d, dim=(1, 2))
+        normal = torch.stack([-dx, -dy, torch.ones_like(d)], dim=-1)
+        return (normal / torch.linalg.norm(normal, dim=-1, keepdim=True) + 1.0) / 2.0
+
+    def _distill_gs_loss(self, inputs, outputs):
+        c = self.cfg
+        disp = self._full_res_disp(outputs)
+        if c.use_normal:
+            disp = self._surface_normal(disp)[..., :2]
+        target = inputs["color"][:, 0]
+        gt = rgb_to_l(target) if c.use_lab else rgb_to_gray(target)
+        mask = inputs.get("mask")
+        if c.use_mask and mask is not None:
+            # under use_normal the JAX package takes mask[..., :2]: of a
+            # 1-channel mask, the same channel, broadcast over the normal's two
+            m = mask[..., :1]
+            return erased_mean(perceptional_loss(gt, self.depth_to_gray(disp * m)),
+                               m) * c.d2g_weight
+        return perceptional_loss(gt, self.depth_to_gray(disp)).mean() * c.d2g_weight
+
+    def _distill_colorize_loss(self, inputs, outputs):
+        c = self.cfg
+        disp = self._full_res_disp(outputs)
+        if c.use_normal:
+            disp = torch.cat([disp, self._surface_normal(disp)[..., :2]], dim=-1)
+        lab = rgb2lab(inputs["color"][:, 0])
+        net_in = torch.cat([disp, lab[..., 0:1]], dim=-1)
+        mask = inputs.get("mask")
+        if c.use_mask and mask is not None:
+            m = mask[..., :1]  # broadcast over the head's inputs, as in JAX
+            return erased_mean(perceptional_loss(lab[..., 1:], self.colorize_net(net_in * m)),
+                               m) * c.colorize_weight
+        return perceptional_loss(lab[..., 1:], self.colorize_net(net_in)).mean() * c.colorize_weight

@@ -1,8 +1,9 @@
 """Five-stage ResNet feature pyramid (`tripled_tpu/models/resnet.py`), NCHW.
 
-Returns [relu1, layer1, layer2, layer3, layer4] at strides 2..32. Convs
-start from kaiming-normal (fan_out), truncated at two standard deviations,
-as `kaiming_out` in the JAX package draws them."""
+Returns [relu1, layer1, layer2, layer3, layer4] at strides 2..32, each
+stage optionally plus an additive conditioning feature. Convs start from
+kaiming-normal (fan_out), truncated at two standard deviations, as
+`kaiming_out` in the JAX package draws them."""
 
 from __future__ import annotations
 
@@ -33,10 +34,17 @@ def _conv(cin, cout, k, stride=1):
 
 
 class BasicBlock(nn.Module):
+    """Two 3x3 conv-BN layers and, with `use_residual`, the residual add.
+    Without a downsample the residual is the input as it is: a 1-channel
+    input broadcasts over the output's channels, as in the JAX block (the
+    grayscale distillation head)."""
+
     expansion = 1
 
-    def __init__(self, cin: int, planes: int, stride: int = 1, downsample: bool = False):
+    def __init__(self, cin: int, planes: int, stride: int = 1, downsample: bool = False,
+                 use_residual: bool = True):
         super().__init__()
+        self.use_residual = use_residual
         self.conv1 = _conv(cin, planes, 3, stride)
         self.bn1 = BatchNorm(planes)
         self.conv2 = _conv(planes, planes, 3)
@@ -57,7 +65,7 @@ class BasicBlock(nn.Module):
         out = F.relu(self.bn1(self.conv1(x)))
         out = self.bn2(self.conv2(out))
         residual = x if self.downsample is None else self.downsample(x)
-        return F.relu(out + residual)
+        return F.relu(out + residual if self.use_residual else out)
 
 
 class Bottleneck(nn.Module):
@@ -113,27 +121,34 @@ class ResNetFeatures(nn.Module):
             planes *= 2
         self.layers = nn.ModuleList(stages)
 
-    def _graph_part(self, x, graph_stages: int):
+    def _graph_part(self, x, graph_stages: int, cond):
         """The stem and stages 1 .. graph_stages-1; returns their features
         and the next stage's input."""
-        x = F.relu(self.bn1(self.conv1(x)))
+        x = _plus(F.relu(self.bn1(self.conv1(x))), cond, 0)
         feats = [x]
         x = F.max_pool2d(x, 3, stride=2, padding=1)
-        for stage in self.layers[:graph_stages - 1]:
-            x = stage(x)
+        for i, stage in enumerate(self.layers[:graph_stages - 1], start=1):
+            x = _plus(stage(x), cond, i)
             feats.append(x)
         return feats, x
 
-    def forward(self, x, graph_stages: int = 5):
-        """The five stages' features. Stages past the first `graph_stages`
-        (the stem counts as the first) run without an autograd graph: their
-        outputs carry no gradient, but their BatchNorm layers still update
-        the running statistics. With `remat`, the part with a graph is
-        recomputed in the backward; the rest keeps nothing to recompute."""
+    def forward(self, x, graph_stages: int = 5, cond_features=None):
+        """The five stages' features; with `cond_features` (five tensors of
+        the stages' shapes) each stage's output is summed with its own
+        before it is stored and fed on. Stages past the first
+        `graph_stages` (the stem counts as the first) run without an
+        autograd graph: their outputs carry no gradient, but their
+        BatchNorm layers still update the running statistics. With `remat`,
+        the part with a graph is recomputed in the backward; the rest keeps
+        nothing to recompute."""
         graph_stages = max(graph_stages, 1)
-        feats, x = remat(self._graph_part, x, graph_stages, enabled=self.remat)
+        feats, x = remat(self._graph_part, x, graph_stages, cond_features, enabled=self.remat)
         with torch.no_grad():
-            for stage in self.layers[graph_stages - 1:]:
-                x = stage(x)
+            for i, stage in enumerate(self.layers[graph_stages - 1:], start=graph_stages):
+                x = _plus(stage(x), cond_features, i)
                 feats.append(x)
         return feats
+
+
+def _plus(x, cond, i: int):
+    return x if cond is None else x + cond[i]

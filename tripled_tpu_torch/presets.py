@@ -1,6 +1,7 @@
-"""Model presets of the port: `mono_baseline`, `mono_fm`, `mono_fm_joint`,
-`mono_fm_joint_inpaint` and `mono_fm_joint_inpaint_disentangle`
-(`tripled_tpu/models/registry.py:36-70`), and two operating points:
+"""Model presets of the port: `mono_baseline` (alias `Baseline`),
+`mono_fm`, `mono_fm_joint`, `mono_fm_joint_inpaint`,
+`mono_fm_joint_inpaint_disentangle` and the five distillation presets
+(`tripled_tpu/models/registry.py:36-100`), and two operating points:
 `mono_fm_bench()` (`bench.py:118-140`) and `flagship_bench()`
 (`configs/cfg_kitti_tripled.py`), both in float32 with the exact warp."""
 
@@ -34,12 +35,28 @@ def _mono_fm_joint_inpaint(c: ModelConfig) -> ModelConfig:
                                use_image_decoder=use_ext and c.img_reconstruct_weight != 0)
 
 
+def _sep(**flag):
+    # the sep variants replace the disentangle ColorDecoder branch with their
+    # own encoder-decoder pair, and have no auto_res term, whatever the
+    # config's auto_res_weight
+    def preset(c: ModelConfig) -> ModelConfig:
+        return dataclasses.replace(_mono_fm_joint_inpaint(c), auto_res_weight=0.0, **flag)
+    return preset
+
+
 PRESETS = {
     "mono_baseline": _mono_baseline,
+    "Baseline": _mono_baseline,
     "mono_fm": _mono_fm,
     "mono_fm_joint": _mono_fm_joint,
     "mono_fm_joint_inpaint": _mono_fm_joint_inpaint,
     "mono_fm_joint_inpaint_disentangle": _mono_fm_joint_inpaint,
+    # with perception_weight=0 (their configs) these two have no extractor
+    "mono_fm_joint_inpaint_distill_gs": _mono_fm_joint_inpaint,
+    "mono_fm_joint_inpaint_distill_colorize": _mono_fm_joint_inpaint,
+    "mono_fm_joint_inpaint_disentangle_distill_colorize": _mono_fm_joint_inpaint,
+    "mono_fm_joint_inpaint_disentangle_distill_sep_colorize": _sep(sep_colorize=True),
+    "mono_fm_joint_inpaint_disentangle_distill_sep_inpaint": _sep(sep_inpaint=True),
 }
 
 

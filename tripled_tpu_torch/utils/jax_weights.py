@@ -8,7 +8,11 @@ written: a missing key, a leftover key or an unwritten tensor raises.
 Trees of a `remat=True` JAX model load too: there `nn.remat` names each
 encoder's ResNet `CheckpointResNetFeatures_0` instead of `ResNetFeatures_0`.
 A `compute_dtype="bfloat16"` model keeps float32 variables, which load as
-they are. The disentangle split (`depth_skips`) has no variables.
+they are. The disentangle split (`depth_skips`) has no variables. The
+distillation heads are `BasicBlock_0` and the 1x1 `Conv_0`; the separate
+colorize and inpaint encoders are plain `ResNetFeatures_0` in every model
+(the JAX package does not rematerialise them), their decoders the trunk
+layout.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ import torch.nn as nn
 from tripled_tpu_torch.models.decoders import ColorDecoder, ImageDecoder
 from tripled_tpu_torch.models.depth_decoder import DepthDecoder
 from tripled_tpu_torch.models.encoders import DepthEncoder, Extractor, PoseEncoder
-from tripled_tpu_torch.models.net import TripleDNet
+from tripled_tpu_torch.models.net import DistillHead, TripleDNet
 from tripled_tpu_torch.models.pose_decoder import PoseDecoder
 from tripled_tpu_torch.models.resnet import Bottleneck, ResNetFeatures
 
@@ -66,16 +70,19 @@ class _Loader:
         self._write(bn.running_mean, self._pop(self.stats, path + ("mean",)), path + ("mean",))
         self._write(bn.running_var, self._pop(self.stats, path + ("var",)), path + ("var",))
 
+    def block(self, block, path):
+        convs, bns = block.convs_and_bns()
+        for j, (conv, bn) in enumerate(zip(convs, bns)):
+            self.conv(conv, path + (f"Conv_{j}",))
+            self.bn(bn, path + (f"BatchNorm_{j}",))
+
     def resnet(self, net: ResNetFeatures, path):
         self.conv(net.conv1, path + ("Conv_0",))
         self.bn(net.bn1, path + ("BatchNorm_0",))
         blocks = [b for stage in net.layers for b in stage]
         for i, block in enumerate(blocks):
             name = f"{'Bottleneck' if isinstance(block, Bottleneck) else 'BasicBlock'}_{i}"
-            convs, bns = block.convs_and_bns()
-            for j, (conv, bn) in enumerate(zip(convs, bns)):
-                self.conv(conv, path + (name, f"Conv_{j}"))
-                self.bn(bn, path + (name, f"BatchNorm_{j}"))
+            self.block(block, path + (name,))
 
     def depth_decoder(self, dec: DepthDecoder, path):
         for L, level in enumerate(dec.levels):
@@ -122,6 +129,9 @@ class _Loader:
             self.depth_decoder(m, path)
         elif isinstance(m, (ImageDecoder, ColorDecoder)):
             self.trunk_decoder(m, path)
+        elif isinstance(m, DistillHead):
+            self.block(m.block, path + ("BasicBlock_0",))
+            self.conv(m.conv, path + ("Conv_0",))
         elif isinstance(m, PoseDecoder):
             for j, conv in enumerate(m.convs):
                 self.conv(conv, path + (f"Conv_{j}",))
