@@ -82,6 +82,24 @@ Phases, each printed as one JSON line with its wall time:
            `configs/cfg_kitti_fm_joint_inpaint_disentangle_distill_colorize.py`
            for 1 epoch with its eval hook on the 98-frame tree: ms/step
            after the first, images/s, the host's wait per step
+  reference_pretext  (after reference_distill) each of the six pretext
+           presets (rotation pretext, autoencoder, inpainter, rotnet,
+           map-pose, equivariant), its config cut to the small step (batch
+           4, a 48-pixel pretext crop), on the card against the CPU in float32
+           from the same crop and labels, bounded as reference_distill
+  pretext  (after distill) a line per pretext preset at its config's values
+           (the port's copy): the four at 320x1024 (rotation pretext,
+           autoencoder, inpainter, rotnet on its 224 crop) R50 with remat,
+           map-pose and equivariant R18 at 192x640, all batch 12, float32:
+           1 warm-up step, 3 timed steps, ms/step, images/s, peak memory,
+           every loss term of the first step, the photometric launches
+           (none for the three standalone models) and the step split
+  train_cli_map  (after train_cli_distill) the train CLI on the port's
+           `configs/cfg_kitti_fm_joint_inpaint_mappose.py` for 1 epoch with
+           its eval hook on the 98-frame tree, through `KITTIMapDataset` and
+           its motion masks: ms/step, the host's wait per step, the motion
+           masks' CPU ms per batch summed over the loader's threads, and
+           one batch's motion masks timed on one thread alone
   probe    `python -m tripled_tpu_torch.dev.element_probe`'s main() on the card
 Then the kernel summary line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Any failure raises and exits
@@ -325,9 +343,12 @@ REFERENCE_TOL = {"float32": {"smooth": 1e-4, "loss": 1e-4, "grad_norm": 1e-4},
                  "bfloat16": {"smooth": 5e-2, "loss": 5e-3, "grad_norm": 1e-2}}
 
 
-def reference_step(dev, seed, cfg, batch, height, width, spread=False, **input_kw):
+def reference_step(dev, seed, cfg, batch, height, width, spread=False, map_alphas=(),
+                   **input_kw):
     """A small training step on the card (kernels) and on the CPU (plain
-    versions) from the same weights and inputs. With `spread`, the card
+    versions) from the same weights and inputs, and the
+    same pretext draws (a CPU generator seeded alike). With `map_alphas`
+    the inputs carry map-pose masks and params. With `spread`, the card
     step runs twice and each metric's bound is widened by three times the
     card's own run-to-run spread (cuDNN's small steps are not
     deterministic)."""
@@ -341,7 +362,10 @@ def reference_step(dev, seed, cfg, batch, height, width, spread=False, **input_k
         state = create_train_state(cfg, OptimConfig(warmup_iters=2), 100, seed=seed, device=device)
         step = make_train_step(state.model, state.optimizer)
         inputs = random_train_inputs(batch, height, width, seed, device=device, **input_kw)
-        metrics[label] = {k: float(v) for k, v in step(inputs).items()}
+        if map_alphas:
+            inputs.update(map_inputs(batch, height, width, map_alphas, seed, device))
+        out = step(inputs, None, torch.Generator().manual_seed(seed))
+        metrics[label] = {k: float(v) for k, v in out.items()}
     cpu, gpu = metrics["cpu"], metrics["card"]
     again = metrics.get("card again", gpu)
     rel = {k: abs(gpu[k] - cpu[k]) / max(abs(cpu[k]), 1e-12) for k in cpu}
@@ -361,6 +385,21 @@ def reference_step(dev, seed, cfg, batch, height, width, spread=False, **input_k
         out["rel_diff"] = rel
         out["card_rel_spread"] = rel_spread
     return out
+
+
+def map_inputs(batch, height, width, alphas, seed, device):
+    """Map-pose inputs from a numpy seed: per source frame a motion mask of
+    random blocks and (label, alpha1, alpha2) over the alpha pairs."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed + 1)
+    blocks = rng.rand(batch, 2, height // 16, width // 16, 1) > 0.7
+    mask = blocks.repeat(16, axis=2).repeat(16, axis=3).astype(np.float32)
+    labels = rng.randint(0, len(alphas) ** 2, (batch, 2))
+    params = np.stack([labels, np.take(alphas, labels // len(alphas)),
+                       np.take(alphas, labels % len(alphas))], -1).astype(np.float32)
+    return {"map_mask": torch.from_numpy(mask).to(device),
+            "map_params": torch.from_numpy(params).to(device)}
 
 
 # kernel-name patterns -> family, first match wins
@@ -479,18 +518,27 @@ FLAGSHIP_LOSS_KEYS = (
 def train_path(photometric, dev, seed, model_cfg, data_cfg, optim_cfg, timed=True):
     """The model's training step at full width from random weights: one
     warm-up step, then (if `timed`) STEPS timed steps with the photometric
-    launch counts set to 0 just before and read just after. Returns the
-    state, the step, its batch and dropout generator, and the measurements."""
+    launch counts set to 0 just before and read just after (none expected
+    of the standalone pretext models). Returns the state, the step (its
+    pretext draws bound to a CPU generator from `seed`), its batch and
+    dropout generator, and the measurements."""
+    import functools
+
+    from tripled_tpu_torch.models.net import TripleDNet
     from tripled_tpu_torch.train.state import create_train_state
     from tripled_tpu_torch.train.step import make_train_step
     from tripled_tpu_torch.utils.inputs import random_train_inputs
 
     t0 = time.perf_counter()
     state = create_train_state(model_cfg, optim_cfg, steps_per_epoch=100, seed=seed, device=dev)
-    step = make_train_step(state.model, state.optimizer)
+    step = functools.partial(make_train_step(state.model, state.optimizer),
+                             pretext=torch.Generator().manual_seed(seed))
     batch = random_train_inputs(data_cfg.batch_size, model_cfg.height, model_cfg.width, seed,
                                 erase_count=data_cfg.erase_count,
                                 erase_shape=data_cfg.erase_shape, device=dev)
+    if state.model.cfg.map_pose:  # the preset's canonical config
+        batch.update(map_inputs(data_cfg.batch_size, model_cfg.height, model_cfg.width,
+                                data_cfg.map_alphas, seed, dev))
     dropout_gen = torch.Generator(dev).manual_seed(seed)
     first = {k: float(v) for k, v in step(batch, dropout_gen).items()}  # warm-up
     warm_s = time.perf_counter() - t0
@@ -511,10 +559,10 @@ def train_path(photometric, dev, seed, model_cfg, data_cfg, optim_cfg, timed=Tru
     bad = [k for k, v in metrics.items() if not math.isfinite(v)]
     if bad:
         raise AssertionError(f"non-finite metrics {bad}: {metrics}")
-    n_scales = len(model_cfg.scales)
+    n_scales = len(model_cfg.scales) if isinstance(state.model, TripleDNet) else 0
     expected = {"fwd": n_scales * STEPS, "bwd": n_scales * STEPS}
     slab = "bfloat16" if model_cfg.compute_dtype == "bfloat16" else "float32"
-    if launches != expected or by_dtype != {f"{k} {slab}": v for k, v in expected.items()}:
+    if launches != expected or by_dtype != {f"{k} {slab}": v for k, v in expected.items() if v}:
         raise AssertionError(f"kernel launches {launches} ({by_dtype}), expected {expected} "
                              f"with {slab} slabs")
     info = {"remat": model_cfg.remat, "compute_dtype": model_cfg.compute_dtype,
@@ -881,8 +929,9 @@ def loader_path(tree, data_cfg, seed):
                         batch = next(batches)
                     row[f"ms_per_batch_{workers}_threads"] = 1e3 * (time.perf_counter() - t0) / n
                     batches.close()
-            check_decodes(dataset.decodes, decoder == "native")
-            row["decodes"] = dict(dataset.decodes)
+            decodes = {k[len("decodes_"):]: v for k, v in dataset.counters.items()}
+            check_decodes(decodes, decoder == "native")
+            row["decodes"] = decodes
             row["bytes_per_batch_to_card"] = sum(v.nbytes for k, v in batch.items()
                                                  if k != "gt_depth")
             row["dtypes"] = {k: str(v.dtype) for k, v in batch.items() if k != "gt_depth"}
@@ -1155,19 +1204,39 @@ def distill_phases(photometric, dev, seed, card):
     return launches
 
 
-def train_cli_distill_path(photometric, dev, tree, tmp):
-    """The train CLI on the port's copy of DISTILL_CLI's config for 1 epoch
-    with its eval hook, on `tree`: only the data paths, the split, epochs,
-    work dir and log interval replaced. The photometric launch counts are
-    set to 0 before the run and read after it."""
+def motion_masks_alone(config_name, seed):
+    """Wall ms of one batch's motion masks (one a source frame) of the
+    port's copy of `config_name`, on this thread alone, on random frames
+    at the config's size: the mask's work does not depend on the pixels."""
+    import numpy as np
+
+    from tripled_tpu_torch.config import load_config
+    from tripled_tpu_torch.data.transforms import motion_mask
+
+    cfg = load_config(os.path.join(CONFIG_DIR, config_name))
+    frames = np.random.RandomState(seed).rand(
+        len(cfg.model.frame_ids), cfg.model.height, cfg.model.width, 3).astype(np.float32)
+    t0 = time.perf_counter()
+    for _ in range(cfg.data.batch_size):
+        for source in frames[1:]:
+            motion_mask(frames[0], source)
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def train_cli_preset_path(photometric, dev, tree, tmp, config_name, term, described):
+    """The train CLI on the port's copy of `config_name` for 1 epoch with
+    its eval hook, on `tree`: only the data paths, the split, epochs, work
+    dir and log interval replaced; `term` must be logged at every step.
+    The photometric launch counts are set to 0 before the run and read
+    after it."""
     from tripled_tpu_torch.cli import train
     from tripled_tpu_torch.config import load_config
     from tripled_tpu_torch.eval.depth_metrics import METRIC_NAMES
 
-    config_name, term = DISTILL[DISTILL_CLI]
     base = os.path.join(CONFIG_DIR, config_name)
-    work = os.path.join(tmp, "work_distill")
-    config = write_cli_config(os.path.join(tmp, "cfg_distill.py"), tree, 1, work, base=base)
+    label = os.path.splitext(config_name)[0]
+    work = os.path.join(tmp, f"work_{label}")
+    config = write_cli_config(os.path.join(tmp, f"{label}.py"), tree, 1, work, base=base)
     cfg, reference = load_config(config), load_config(base)
     if (cfg.model, cfg.data.name, cfg.data.batch_size, cfg.data.erase_count,
             cfg.data.erase_shape) != (reference.model, reference.data.name,
@@ -1208,9 +1277,13 @@ def train_cli_distill_path(photometric, dev, tree, tmp):
     step_ms = step_times(train_rows, steps)
     ms = sum(step_ms) / len(step_ms)
     waits = [r["epoch/loader_wait_s"] for r in epoch_rows]
-    return {"config": f"tripled_tpu_torch/configs/{config_name} (R50/R18/R50 192x640 batch 12 "
-            "f32, kitti_inpaint's 16 erased 16x16 squares); data, split, epochs, work dir and "
-            "log interval replaced", "tree": {"frames": tree["num_frames"],
+    # the motion masks' CPU time, summed over the loader's threads
+    motion_s = [r["epoch/motion_mask_cpu_s"] for r in epoch_rows if "epoch/motion_mask_cpu_s" in r]
+    extra = {"motion_mask_cpu_ms_per_batch": 1e3 * sum(motion_s) / steps,
+             "motion_mask_cpu_s": motion_s} if motion_s else {}
+    return {"config": f"tripled_tpu_torch/configs/{config_name} ({described}); data, split, "
+            "epochs, work dir and log interval replaced", **extra,
+            "tree": {"frames": tree["num_frames"],
                                                "height": tree["height"], "width": tree["width"]},
             "steps": steps, "run_seconds": run_s, "ms_per_step_after_first": step_ms,
             "ms_per_step": ms, "images_per_s": cfg.data.batch_size / (ms / 1e3),
@@ -1221,6 +1294,83 @@ def train_cli_distill_path(photometric, dev, tree, tmp):
             "eval_hook": {k: history[0][k] for k in METRIC_NAMES},
             "eval_images_per_s": [r["val/eval_fps"] for r in rows if "val/eval_fps" in r],
             "peak_memory_gib": peak_gib, "launches": launches, "launches_by_dtype": by_dtype}
+
+
+# each pretext preset: the port's copy of the config that names it, and the
+# loss term it adds
+PRETEXT = {
+    "mono_fm_joint_im_rot": ("cfg_kitti_fm_joint_im_rot.py", "ssl_rot_loss"),
+    "autoencoder": ("cfg_kitti_autoencoder.py", "min_reconstruct_loss/0"),
+    "inpainter": ("cfg_kitti_inpainter.py", "min_reconstruct_loss/0"),
+    "rotnet": ("cfg_kitti_rotnet.py", "ssl_rot_loss"),
+    "mono_fm_joint_inpaint_map_pose": ("cfg_kitti_fm_joint_inpaint_mappose.py",
+                                       "map_pose_loss/1"),
+    "mono_fm_joint_equivariant_inpaint": ("cfg_kitti_fm_joint_inpaint_equivariant.py",
+                                          "min_equivariant_loss/0"),
+}
+MAP_CLI = "mono_fm_joint_inpaint_map_pose"
+
+
+def pretext_config(name):
+    from tripled_tpu_torch.config import load_config
+
+    cfg = load_config(os.path.join(CONFIG_DIR, PRETEXT[name][0]))
+    if cfg.model.name != name:
+        raise AssertionError(f"{PRETEXT[name][0]} names {cfg.model.name}, not {name}")
+    return cfg
+
+
+def reference_pretext(dev, seed):
+    """Each pretext preset's config cut to a small step (R18 everywhere,
+    64x160, the pose net at 32x96, batch 4, 4 erased 8x8 squares, a
+    48-pixel crop, so that both of its offsets vary, dropout off), on the
+    card against the CPU, float32, from the same crop and labels, each
+    metric's bound widened by the card's own spread. The crop and batch: at
+    32 pixels the extractor's last stage is 1x1, and BatchNorm over a few
+    values per channel leaves the gradient too ill-conditioned to compare;
+    at 48 with batch 2 the rotation pretext's gradient norm on the card
+    stood 9.65e-5 from the CPU's, next to its 1e-4 bound."""
+    out = {}
+    for name, (_, term) in PRETEXT.items():
+        cfg = pretext_config(name)
+        model = dataclasses.replace(
+            cfg.model, height=64, width=160, pose_height=32, pose_width=96,
+            depth_num_layers=18, pose_num_layers=18, extractor_num_layers=18,
+            depth_dropout_rate=0.0, pretext_resize=48, remat=False)
+        out[name] = reference_step(dev, seed, model, 4, 64, 160, spread=True,
+                                   map_alphas=cfg.data.map_alphas if name == MAP_CLI else (),
+                                   erase_count=4 if cfg.data.erase_count else 0,
+                                   erase_shape=(8, 8))
+        if term not in out[name]["keys"]:
+            raise AssertionError(f"{name}: no {term} in {out[name]['keys']}")
+    return out
+
+
+def pretext_phases(photometric, dev, seed, card):
+    """Phase pretext, a line per preset: its step at its config's values
+    from random weights through `train_path`, then its step split; returns
+    the photometric launches by path."""
+    launches = {}
+    for name, (config, term) in PRETEXT.items():
+        t0 = time.perf_counter()
+        cfg = pretext_config(name)
+        state, step, batch, gen, info = train_path(photometric, dev, seed, cfg.model, cfg.data,
+                                                   cfg.optim)
+        if term not in info["first_step_metrics"]:
+            raise AssertionError(f"{name}: no {term} in {sorted(info['first_step_metrics'])}")
+        launches[f"pretext {name}"] = info["launches"]
+        m = cfg.model
+        phase("pretext", t0, preset=name, config=f"tripled_tpu_torch/configs/{config}",
+              new_term=term, card=card, module=type(state.model).__name__,
+              shape={"height": m.height, "width": m.width, "batch": cfg.data.batch_size,
+                     "depth_num_layers": m.depth_num_layers,
+                     "extractor_num_layers": m.extractor_num_layers,
+                     "pretext_resize": m.pretext_resize if m.im_rot or name == "rotnet"
+                     else None},
+              step_split_ms=split_step(step, state.model, batch, gen), **info)
+        del state, step, batch, gen
+        torch.cuda.empty_cache()
+    return launches
 
 
 def main():
@@ -1296,6 +1446,10 @@ def main():
     phase("reference_distill", t0, tolerance=REFERENCE_TOL["float32"],
           bound="3 x the card's run-to-run spread + tolerance x |cpu|",
           presets=reference_distill(dev, args.seed))
+    t0 = time.perf_counter()
+    phase("reference_pretext", t0, tolerance=REFERENCE_TOL["float32"],
+          bound="3 x the card's run-to-run spread + tolerance x |cpu|",
+          presets=reference_pretext(dev, args.seed))
 
     t0 = time.perf_counter()
     model_cfg, data_cfg, optim_cfg = mono_fm_bench()
@@ -1321,7 +1475,8 @@ def main():
     launches_by_path, flagship_ms = flagship_phases(photometric, dev, args.seed, card,
                                                     flagship_cfg, flagship_data, flagship_optim)
     launches_by_path = {"train": train_launches, **launches_by_path,
-                        **distill_phases(photometric, dev, args.seed, card)}
+                        **distill_phases(photometric, dev, args.seed, card),
+                        **pretext_phases(photometric, dev, args.seed, card)}
 
     with tempfile.TemporaryDirectory(prefix="train_cli_") as tmp:
         t0 = time.perf_counter()
@@ -1357,9 +1512,20 @@ def main():
               tree={"frames": tree["num_frames"], "height": tree["height"],
                     "width": tree["width"]}, **fast)
         t0 = time.perf_counter()
-        distill_cli = train_cli_distill_path(photometric, dev, tree, tmp)
+        distill_cli = train_cli_preset_path(
+            photometric, dev, tree, tmp, *DISTILL[DISTILL_CLI],
+            "R50/R18/R50 192x640 batch 12 f32, kitti_inpaint's 16 erased 16x16 squares")
         launches_by_path["train_cli_distill"] = distill_cli["launches"]
         phase("train_cli_distill", t0, card=card, preset=DISTILL_CLI, **distill_cli)
+        t0 = time.perf_counter()
+        map_cli = train_cli_preset_path(
+            photometric, dev, tree, tmp, *PRETEXT[MAP_CLI],
+            "R18/R18 192x640 batch 12 f32, kitti_map: motion masks, map params over the "
+            "alphas (0.1, 0.4, 0.7, 1.0), 16 erased 16x16 squares")
+        launches_by_path["train_cli_map"] = map_cli["launches"]
+        map_cli["motion_mask_ms_per_batch_one_thread"] = motion_masks_alone(
+            PRETEXT[MAP_CLI][0], args.seed)
+        phase("train_cli_map", t0, card=card, preset=MAP_CLI, **map_cli)
 
     t0 = time.perf_counter()
     for k in probe.launches:

@@ -1,6 +1,6 @@
 """The port's experiment configs against the JAX package's, field by field:
 `tripled_tpu_torch/configs/X.py` through the port's `load_config` and
-`configs/X.py` through the JAX one, for the 12 configs that name ported
+`configs/X.py` through the JAX one, for the 18 configs that name ported
 presets. Every DataConfig, OptimConfig and top-level ExperimentConfig
 field is equal, and so is every field of the port's ModelConfig, before
 and after each package's `canonicalize`. The LR schedule is held against
@@ -36,7 +36,10 @@ CONFIGS = ["cfg_folder", "cfg_kitti_fm", "cfg_kitti_fm_joint", "cfg_kitti_fm_joi
            "cfg_kitti_fm_joint_inpaint_distill_gs", "cfg_kitti_fm_joint_inpaint_distill_colorize",
            "cfg_kitti_fm_joint_inpaint_disentangle_distill_colorize",
            "cfg_kitti_fm_joint_inpaint_disentangle_distill_full_colorize",
-           "cfg_kitti_fm_joint_inpaint_disentangle_distill_full_inpaint"]
+           "cfg_kitti_fm_joint_inpaint_disentangle_distill_full_inpaint",
+           "cfg_kitti_fm_joint_im_rot", "cfg_kitti_autoencoder", "cfg_kitti_inpainter",
+           "cfg_kitti_rotnet", "cfg_kitti_fm_joint_inpaint_mappose",
+           "cfg_kitti_fm_joint_inpaint_equivariant"]
 
 
 def _load_jax(name):

@@ -104,8 +104,8 @@ def test_sample_matches_jax(tree, monkeypatch, name, training, cache_mb, mode, n
     assert ("color_aug" in keys) == (not (training and device_color_aug))
     if training and device_color_aug:
         assert applied == {0.0, 1.0}
-    decoded = pds.decodes["native" if native == "1" else "pil"]
-    assert decoded > 0 and sum(pds.decodes.values()) == decoded
+    decoded = pds.counters["decodes_native" if native == "1" else "decodes_pil"]
+    assert decoded > 0 and sum(pds.counters.values()) == decoded
 
 
 def test_ship_uint8_needs_device_color_aug_in_training(tree):
@@ -143,7 +143,7 @@ def test_pil_takes_files_the_native_loader_cannot_read(tree, tmp_path, monkeypat
     for index in (0, 1):
         _assert_samples_equal(jds.sample(index, np.random.RandomState(0)),
                               pds.sample(index, np.random.RandomState(0)))
-    assert pds.decodes == {"native": 1, "pil": 1}
+    assert pds.counters == {"decodes_native": 1, "decodes_pil": 1}
 
 
 @pytest.mark.parametrize("num_workers", [1, 4])

@@ -1,9 +1,10 @@
 """The distillation presets of tripled_tpu_torch against the JAX package's
 registry, and their weight trees, on the CPU (no step runs here):
 
-- `canonicalize`, field by field, for all 11 names the port knows
-  (`Baseline` included) without the perceptual term (the two presets
-  without an extractor) and without the image reconstruction;
+- `canonicalize`, field by field, for the 11 names of the slices before
+  the pretext presets (`Baseline` included) without the perceptual term
+  (the two presets without an extractor) and without the image
+  reconstruction;
 - `load_jax_variables` on each distillation preset's JAX tree, remat on
   and off: the networks each preset builds, every tensor written, nothing
   left over; the separate encoders keep their plain `ResNetFeatures_0`
@@ -28,7 +29,9 @@ from tripled_tpu_torch.utils.jax_weights import load_jax_variables
 
 torch.set_num_threads(1)
 
-NAMES = sorted(presets.PRESETS)
+# the names of the slices up to the distillation presets; the pretext
+# presets are held in `test_torch_port_pretext_presets.py`
+NAMES = sorted(set(presets.PRESETS) - set(presets.PRETEXT_PRESETS))
 
 
 def test_the_port_knows_eleven_presets():

@@ -1,18 +1,16 @@
 """Frozen configuration dataclasses (`tripled_tpu/config.py`): the fields
-of the JAX package's `ModelConfig` that the mono_baseline, mono_fm,
-mono_fm_joint* and distillation training steps read, and every field of
-`DataConfig`, `OptimConfig` and `ExperimentConfig`, with the same
-defaults. A model field whose other values belong to branches not ported
-yet (attention or 1x1 skips, `use_pfp`) takes only its default. Not here
-yet: the map-pose, equivariant and rotation-pretext fields (`map_pose`,
-`map_output`, `map_pose_weight`, `equivariant`, `equivariant_weight`,
-`im_rot`, `pretext_resize`, `pretext_label_size`, `pretext_weight`), the
-decoder variants (`use_hr_depth`, `use_diffnet`, `depth_use_shuffle`) and
-the warp and kernel options (`warp_align_corners`, `warp_gather_dtype`,
+of the JAX package's `ModelConfig` that the training steps of all 16 MONO
+presets read (the map-pose, equivariant and rotation-pretext fields
+included), and every field of `DataConfig`, `OptimConfig` and
+`ExperimentConfig`, with the same defaults. A model field whose other
+values belong to branches not ported yet (attention or 1x1 skips,
+`use_pfp`) takes only its default, and the pretext presets
+(`presets.PRETEXT_PRESETS`) take only float32. Not here yet: the decoder
+variants (`use_hr_depth`, `use_diffnet`, `depth_use_shuffle`) and the warp
+and kernel options (`warp_align_corners`, `warp_gather_dtype`,
 `warp_block_gather`, `warp_block_shape`, `warp_block_features`,
-`use_pallas_photometric`, `pool_eqmask_grad`). Experiment configs are
-python files defining `config` (`tripled_tpu_torch/configs/`), read with
-`load_config`."""
+`use_pallas_photometric`, `pool_eqmask_grad`). Experiment configs are python files defining
+`config` (`tripled_tpu_torch/configs/`), read with `load_config`."""
 
 from __future__ import annotations
 
@@ -80,6 +78,25 @@ class ModelConfig:
     colorize_num_layers: int = 50
     inpaint_num_layers: int = 50
 
+    # map-pose pretext: the pose net also classifies which of the
+    # map_output alpha pairs mixed the motion-masked frames
+    map_pose: bool = False
+    map_output: int = 0
+    map_pose_weight: float = 0.0
+
+    # equivariant pretext: the extractor's source features, warped into the
+    # target, decode the source frame outside the warped erase mask
+    equivariant: bool = False
+    equivariant_weight: float = 0.0
+
+    # rotation pretext (rotnet, mono_fm_joint_im_rot): a batch-shared
+    # pretext_resize crop, each sample rotated by k * 90 degrees, and a
+    # pretext_label_size-way head on the extractor
+    im_rot: bool = False
+    pretext_resize: int = 224
+    pretext_label_size: int = 4
+    pretext_weight: float = 1.0
+
     # dropout on the two deepest skips of the CRP DepthDecoder; 0.0 for
     # deterministic parity runs
     depth_dropout_rate: float = 0.5
@@ -107,6 +124,9 @@ class ModelConfig:
         if self.depth_disentangle_type != "use_half":
             raise ValueError(f"depth_disentangle_type={self.depth_disentangle_type!r} "
                              f"waits for {later}")
+        from tripled_tpu_torch.presets import PRETEXT_PRESETS  # presets imports this module
+        if self.compute_dtype == "bfloat16" and self.name in PRETEXT_PRESETS:
+            raise ValueError(f"compute_dtype='bfloat16' for {self.name!r} waits for {later}")
 
     @property
     def num_frames(self) -> int:

@@ -11,12 +11,15 @@ Sample keys (a subset, by dataset):
                     makes color_aug on the device (`ops/jitter.py`)
   K, inv_K          (4, 4)
   mask              (H, W, 1)   1 = keep, 0 = erased (inpaint datasets)
+  map_mask          (F-1, H, W, 1) motion masks (map dataset)
+  map_params        (F-1, 3)    (label, alpha1, alpha2) per source frame
   color_lab         (F, H, W, 3) with DataConfig.add_lab
   stereo_T          (4, 4)      when "s" is in frame_ids
   gt_depth          (h, w)      validation, at the ground truth's own size
 
 Each draw from the sample's RandomState comes in the JAX package's order
-(jitter?, flip?, the jitter's factors, then the erase squares), so that
+(jitter?, flip?, the jitter's factors, the erase squares, then the
+map-pose labels), so that
 both packages make the same sample from the same seed.
 
 Frames decode through the native loader (`native_loader.py`: g++, libpng,
@@ -24,13 +27,16 @@ libjpeg) unless TRIPLED_NATIVE_LOADER=0 or it did not build, and through
 PIL when it is off or fails on a file, as in the JAX package. Both give
 PIL's bytes after rounding; the native floats are those bytes times
 1/255, which can differ from PIL's bytes / 255 in the last bit. Each
-dataset counts its decodes by decoder (`decodes`).
+dataset counts its decodes by decoder in `counters` (`decodes_native`,
+`decodes_pil`); the map dataset adds its motion masks' CPU seconds
+(`motion_mask_cpu_s`). The training loop logs them each epoch.
 """
 
 from __future__ import annotations
 
 import os
 import threading
+import time
 from typing import Sequence
 
 import numpy as np
@@ -41,6 +47,7 @@ from tripled_tpu_torch.data.transforms import (
     ColorJitter,
     load_image,
     make_erase_mask,
+    motion_mask,
     resize_antialias,
     to_float,
 )
@@ -104,8 +111,9 @@ class MonoDataset:
         self.jitter = ColorJitter()
         self.use_native = (os.environ.get("TRIPLED_NATIVE_LOADER", "1") == "1"
                            and native_loader.available())
-        # frames decoded by each decoder, cache hits not counted
-        self.decodes = {"native": 0, "pil": 0}
+        # frames decoded by each decoder (cache hits not counted), and a
+        # subclass's own counts
+        self.counters = {"decodes_native": 0, "decodes_pil": 0}
         self._count_lock = threading.Lock()
         if self.cfg.ship_uint8 and is_train and not self.cfg.device_color_aug:
             raise ValueError("DataConfig.ship_uint8 requires device_color_aug=True for training "
@@ -158,9 +166,9 @@ class MonoDataset:
         img = hit if as_uint8 else hit.astype(np.float32) / 255.0
         return img[:, ::-1] if do_flip else img
 
-    def _count(self, decoder: str) -> None:
+    def _count(self, key: str, amount=1) -> None:
         with self._count_lock:
-            self.decodes[decoder] += 1
+            self.counters[key] += amount
 
     def _decode(self, folder, frame_index, side, do_flip) -> np.ndarray:
         """The native loader first, then PIL where it is off or fails."""
@@ -171,10 +179,10 @@ class MonoDataset:
             except IOError:
                 pass
             else:
-                self._count("native")
+                self._count("decodes_native")
                 return img
         img = self.get_color(folder, frame_index, side, do_flip)
-        self._count("pil")
+        self._count("decodes_pil")
         return to_float(resize_antialias(img, self.height, self.width))
 
     def load_frames(self, index, do_flip):
@@ -265,6 +273,39 @@ class KITTIInpaintDataset(KITTIRawDataset):
     def post_process(self, out, rng):
         out["mask"] = make_erase_mask(rng, self.height, self.width, self.cfg.erase_shape,
                                       self.cfg.erase_count)
+
+
+class KITTIMapDataset(KITTIInpaintDataset):
+    """The inpaint mask, then per source frame its motion mask against the
+    target and map-pose params (label, alpha1, alpha2): the label drawn
+    from `rng` over the len(alphas)**2 alpha pairs, in the JAX package's
+    order of draws (`tripled_tpu/data/datasets.py:384-401`). The alphas
+    default to (0.25, 0.5, 0.75, 1.0). A validation sample, target only,
+    has neither: the JAX package stacks no masks there and raises, so its
+    eval hook cannot run on this dataset. `counters["motion_mask_cpu_s"]`
+    sums the CPU time of each `motion_mask` call on its own thread, so
+    that BatchLoader's threads waiting for one another do not count."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.counters["motion_mask_cpu_s"] = 0.0
+
+    def post_process(self, out, rng):
+        super().post_process(out, rng)
+        if len(self.frame_ids) == 1:
+            return
+        alphas = tuple(self.cfg.map_alphas) or (0.25, 0.5, 0.75, 1.0)
+        target = out["color"][0]
+        masks, params = [], []
+        for i in range(1, len(self.frame_ids)):
+            t0 = time.thread_time()
+            masks.append(motion_mask(target, out["color"][i]))
+            self._count("motion_mask_cpu_s", time.thread_time() - t0)
+            gt_map = rng.randint(0, len(alphas) ** 2)
+            ind1, ind2 = gt_map // len(alphas), gt_map % len(alphas)
+            params.append([float(gt_map), alphas[ind1], alphas[ind2]])
+        out["map_mask"] = np.stack(masks).astype(np.float32)
+        out["map_params"] = np.asarray(params, np.float32)
 
 
 class KITTIOdomDataset(MonoDataset):

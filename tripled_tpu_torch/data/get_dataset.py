@@ -8,6 +8,7 @@ from tripled_tpu_torch.data.datasets import (
     EuRoCDataset,
     FolderDataset,
     KITTIInpaintDataset,
+    KITTIMapDataset,
     KITTIOdomDataset,
     KITTIRawDataset,
 )
@@ -16,13 +17,14 @@ from tripled_tpu_torch.data.readers import readlines, split_file_path
 _DATASETS = {
     "kitti": KITTIRawDataset,
     "kitti_inpaint": KITTIInpaintDataset,
+    "kitti_map": KITTIMapDataset,
     "kitti_odom": KITTIOdomDataset,
     "folder": FolderDataset,
     "eth3d": ETH3DDataset,
     "euroc": EuRoCDataset,
 }
 # names the JAX package knows whose datasets wait for a later slice
-_LATER = ("kitti_map", "kitti_depth", "cityscape")
+_LATER = ("kitti_depth", "cityscape")
 
 
 def get_dataset(cfg: DataConfig, training: bool = True, split_file: str | None = None):

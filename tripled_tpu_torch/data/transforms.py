@@ -1,7 +1,8 @@
 """Host-side sample transforms (`tripled_tpu/data/transforms.py`), numpy
 and PIL: decode, Lanczos resize, the shared ColorJitter (p = 0.5;
-brightness, contrast, saturation 0.8-1.2, hue +-0.1) and the inpaint erase
-mask. The colour functions take float32 RGB (H, W, 3) in [0, 1]."""
+brightness, contrast, saturation 0.8-1.2, hue +-0.1), the inpaint erase
+mask and the map-pose motion mask. The colour functions take float32 RGB
+(H, W, 3) in [0, 1]."""
 
 from __future__ import annotations
 
@@ -117,3 +118,43 @@ def make_erase_mask(rng: np.random.RandomState, height: int, width: int,
         col = rng.randint(0, width - ew - 1)
         mask[row:row + eh, col:col + ew] = 0
     return mask
+
+
+def motion_mask(target: np.ndarray, source: np.ndarray, blur_kernel: int = 9,
+                threshold: float | None = None) -> np.ndarray:
+    """Frame-difference motion mask, (H, W, 1) float32, 1 where the
+    box-blurred grey difference exceeds Otsu's threshold (or `threshold`),
+    computed as `tripled_tpu/data/transforms.py:138-179` computes it. The
+    frames are scaled by 255 as floats in [0, 1] are; uint8 frames
+    (DataConfig.ship_uint8) are scaled all the same, as the JAX package
+    scales them, so their differences mostly fall past the 0-255 histogram."""
+    tg = (target @ _GRAY_W * 255).astype(np.float32)
+    sg = (source @ _GRAY_W * 255).astype(np.float32)
+    diff = np.abs(sg - tg)
+    kernel = np.ones(blur_kernel, np.float32) / blur_kernel
+    blurred = np.apply_along_axis(lambda r: np.convolve(r, kernel, mode="same"), 1, diff)
+    blurred = np.apply_along_axis(lambda c: np.convolve(c, kernel, mode="same"), 0, blurred)
+    if threshold is None:
+        threshold = _otsu(blurred)
+    return (blurred > threshold).astype(np.float32)[..., None]
+
+
+def _otsu(img: np.ndarray) -> float:
+    """The centre of the 256-bin (0-255) histogram bin that maximises the
+    between-class variance; 0 for an empty histogram."""
+    hist, bin_edges = np.histogram(img.reshape(-1), bins=256, range=(0, 255))
+    hist = hist.astype(np.float64)
+    total = hist.sum()
+    if total == 0:
+        return 0.0
+    w0 = np.cumsum(hist)
+    w1 = total - w0
+    centers = (bin_edges[:-1] + bin_edges[1:]) / 2
+    cum_mean = np.cumsum(hist * centers)
+    mean_total = cum_mean[-1]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        mu0 = cum_mean / w0
+        mu1 = (mean_total - cum_mean) / w1
+        between = w0 * w1 * (mu0 - mu1) ** 2
+    between = np.nan_to_num(between)
+    return float(centers[int(between.argmax())])

@@ -28,6 +28,12 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> 
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    """Slope 0.01 in x's dtype, as the JAX package's weakly typed constant:
+    in bf16, bf16(0.01) = 0.010009765625."""
+    return F.leaky_relu(x, 0.010009765625 if x.dtype == torch.bfloat16 else 0.01)
+
+
 class _Level(nn.Module):
     def __init__(self, feat_ch: int, reduce_ch: int, in_ch: int, bottleneck: int):
         super().__init__()
@@ -41,9 +47,9 @@ class _Level(nn.Module):
         x = self.reduce(feat)
         if prev is not None:
             x = torch.cat([x, prev, prev_disp], dim=1)
-        x = F.leaky_relu(self.iconv(x))
+        x = leaky_relu(self.iconv(x))
         x = self.crp(x)
-        x = F.leaky_relu(self.merge(x))
+        x = leaky_relu(self.merge(x))
         x = upsample2x_nearest(x)
         return x, torch.sigmoid(self.disp(x))
 

@@ -1,8 +1,10 @@
 """Depth, pose and extractor encoders (`tripled_tpu/models/encoders.py`).
 
 They take NCHW images in [0, 1]. The depth and pose encoders normalise as
-(x - 0.45) / 0.225, in the input's dtype; the extractor takes its input as
-it is. With `remat`, each recomputes its ResNet's activations in the
+(x - 0.45) / 0.225 in the input's dtype, each constant rounded to that
+dtype and each operation rounded, as XLA computes the JAX package's weakly
+typed constants (a bf16 image meets bf16(0.45) and bf16(0.225)); the
+extractor takes its input as it is. With `remat`, each recomputes its ResNet's activations in the
 backward, as `tripled_tpu/models/encoders.py:23-29` wraps it in nn.remat."""
 
 from __future__ import annotations
@@ -13,7 +15,9 @@ from tripled_tpu_torch.models.resnet import ResNetFeatures, stage_channels
 
 
 def _norm(x):
-    return (x - 0.45) / 0.225
+    # 0-d tensors, not Python numbers: a Python number meets a bf16 tensor
+    # in float32, and CUDA turns a divide by one into a multiply
+    return (x - x.new_tensor(0.45)) / x.new_tensor(0.225)
 
 
 class DepthEncoder(nn.Module):

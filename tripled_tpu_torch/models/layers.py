@@ -8,7 +8,9 @@ U(+-1/sqrt(fan_in)) for kernel and bias, which is what the JAX package's
 Dtypes follow flax's promotion: a convolution computes in the wider of
 its input's and its parameters' dtypes, so bf16-rounded parameters meeting
 a float32 input compute in float32, and float32 parameters meeting a bf16
-input too. BatchNorm computes in float32 and returns its input's dtype."""
+input too. BatchNorm computes in float32 and returns its input's dtype.
+A bf16 convolution followed by BatchNorm hands it its float32 result
+unrounded, on every device (`conv_bn`)."""
 
 from __future__ import annotations
 
@@ -21,6 +23,57 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 _state = threading.local()
+
+
+@contextmanager
+def _tf32():
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+class _WideConv(torch.autograd.Function):
+    """A convolution of bf16 `x` and `w` that returns its float32
+    accumulation, with the bf16 operands widened to float32 and the
+    gradients rounded back to bf16. On the card cuDNN computes it in TF32,
+    whose 10-bit mantissa holds the bf16 operands exactly, forward and
+    backward; only x and w are kept for the backward, in bf16."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding, dilation, groups):
+        ctx.save_for_backward(x, w)
+        ctx.conv = (stride, padding, dilation, groups)
+        with _tf32():
+            return F.conv2d(x.float(), w.float(), None, stride, padding, dilation, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        stride, padding, dilation, groups = ctx.conv
+        with _tf32():
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                g, x.float(), w.float(), None, stride, padding, dilation, False, [0, 0],
+                groups, [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return (None if gx is None else gx.to(x.dtype), None if gw is None else gw.to(w.dtype),
+                None, None, None, None)
+
+
+def conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """bn(conv(x)) for a convolution without bias. A bf16 convolution (bf16
+    input and parameters, as the training step casts them) hands BatchNorm
+    its float32 accumulation unrounded, and BatchNorm's output is rounded
+    to bf16 once: so XLA computes the JAX package's convolution and
+    BatchNorm, its excess precision (on by default) dropping the round
+    trip through bf16 into BatchNorm's float32 arithmetic. The same on
+    every device; on the card it costs TF32 convolutions (`_WideConv`)
+    where cuDNN's bf16 ones would round their output."""
+    if torch.promote_types(x.dtype, conv.weight.dtype) != torch.bfloat16:
+        return bn(conv(x))
+    y = _WideConv.apply(x, conv.weight, conv.stride, conv.padding, conv.dilation, conv.groups)
+    return bn(y).to(torch.bfloat16)
 
 
 def recomputing() -> bool:

@@ -3,7 +3,12 @@
 mono_fm_joint_inpaint_disentangle and the five distillation presets
 included: the grayscale and ab-colorization heads on the full-resolution
 disparity (and its surface normal), and the separate colorize and inpaint
-encoder-decoder pairs.
+encoder-decoder pairs. Also the three pretext presets: the rotation
+pretext (`im_rot`: the extractor on a rotated crop, `rot_head`, and the
+perceptual term on crops), map-pose (the pose net on motion-masked,
+alpha-mixed frames, and `pose_map_cls` classifying the alpha pair) and
+equivariant (the extractor's source features warped into the target
+decode each source frame outside its warped erase mask).
 
 Inputs are a dict of stacked tensors in the JAX package's layout, frame axis
 F in `cfg.frame_ids` order (index 0 is the target frame):
@@ -14,6 +19,8 @@ F in `cfg.frame_ids` order (index 0 is the target frame):
                     from color (`ops/jitter.py`)
   K, inv_K          (B, 4, 4)
   mask              (B, H, W, 1) inpaint erase mask, 1 = keep (inpaint only)
+  map_mask          (B, F-1, H, W, 1) motion masks (map-pose only)
+  map_params        (B, F-1, 3) (label, alpha1, alpha2) per source frame
 In training mode the forward returns (outputs, loss_dict) with scalar
 losses; in eval mode, the 4-scale disparity list [s0..s3], each
 (B, h, w, 1). The networks run NCHW; the losses take NHWC views, as the
@@ -40,6 +47,8 @@ import torch
 import torch.nn as nn
 
 from tripled_tpu_torch.config import ModelConfig
+from tripled_tpu_torch.models import aux_nets
+from tripled_tpu_torch.models.aux_nets import Dense, crop, cross_entropy_with_batch_softmax, rotate_batch
 from tripled_tpu_torch.models.decoders import ColorDecoder, ImageDecoder
 from tripled_tpu_torch.models.depth_decoder import DepthDecoder
 from tripled_tpu_torch.models.encoders import DepthEncoder, Extractor, PoseEncoder
@@ -150,6 +159,10 @@ class TripleDNet(nn.Module):
             self.inpaint_decoder = ColorDecoder(
                 self.inpaint_encoder.num_ch_enc, 3,
                 skip_connection_multiplier=cfg.skip_connection_multiplier, remat=cfg.remat)
+        if cfg.map_pose:
+            self.pose_map_cls = Dense(self.pose_encoder.num_ch_enc[4], cfg.map_output)
+        if cfg.im_rot:
+            self.rot_head = Dense(self.extractor.num_ch_enc[4], cfg.pretext_label_size)
 
     # ----------------------------------------------------------- precision
 
@@ -169,8 +182,11 @@ class TripleDNet(nn.Module):
 
     # ------------------------------------------------------------- forward
 
-    def forward(self, inputs: Dict[str, torch.Tensor], generator: torch.Generator | None = None):
-        """`generator` draws the decoder's dropout in training."""
+    def forward(self, inputs: Dict[str, torch.Tensor], generator: torch.Generator | None = None,
+                pretext: torch.Generator | None = None):
+        """`generator` draws the decoder's dropout in training; `pretext`, a
+        CPU generator, the rotation pretext's crop and labels
+        (`aux_nets.draw_pretext`)."""
         c = self.cfg
         inputs = dict(inputs)
         for key in ("color", "color_aug"):
@@ -192,10 +208,21 @@ class TripleDNet(nn.Module):
                          for f, flag in zip(scene, c.disentangle_layers)]
             outputs["auto_res"] = [_nhwc(x) for x in self._f32(
                 self.color_decoder(color_emb, self._cd(disps_nchw)))]
-        outputs["cam_T_cam"] = self._predict_poses(inputs)
+        outputs["cam_T_cam"], outputs["map_logits"] = self._predict_poses(inputs)
 
         features = None
-        if c.use_extractor:
+        if c.im_rot:
+            # the extractor sees a rotated crop of the target; its features
+            # also feed the feature regularisation
+            target = inputs["color"][:, 0]
+            b, h, w, _ = target.shape
+            ri, rj, labels = aux_nets.draw_pretext(pretext, b, h, w, c.pretext_resize)
+            rotated = rotate_batch(crop(target, ri, rj, c.pretext_resize), labels)
+            features = self._f32(self._extract(self._cd(rotated)))
+            outputs["rot_predicts"] = self.rot_head(features[-1].mean(dim=(2, 3)))
+            outputs["rot_gt"] = labels
+            outputs["crop_offset"] = (ri, rj)
+        elif c.use_extractor:
             # only the base inpaint preset masks the extractor's input; the
             # disentangle one feeds it the whole target
             # (`tripled_tpu/models/net.py:367-375`)
@@ -237,22 +264,35 @@ class TripleDNet(nn.Module):
 
     def _predict_poses(self, inputs):
         """PoseEncoder + PoseDecoder on each (temporally ordered) frame pair
-        at the fixed pose resolution."""
+        at the fixed pose resolution. Map-pose mixes each source by
+        alpha1 and the target by alpha2 inside the source's motion mask,
+        and classifies the pose bottleneck's mean. Returns (cam_T_cam,
+        map_logits), each by source frame index."""
         c = self.cfg
 
         def at_pose_res(x):
             return resize_bilinear(x, c.pose_height, c.pose_width)
 
         tgt = at_pose_res(inputs["color_aug"][:, 0])
-        cam_T_cam = {}
+        cam_T_cam, map_logits = {}, {}
         for i, f_i in enumerate(c.frame_ids[1:], start=1):
             src = at_pose_res(inputs["color_aug"][:, i])
-            pair = (src, tgt) if f_i < 0 else (tgt, src)
+            tgt_i = tgt
+            if c.map_pose:
+                mm = at_pose_res(inputs["map_mask"][:, i - 1])
+                mp = inputs["map_params"][:, i - 1]
+                a1 = mp[:, 1].reshape(-1, 1, 1, 1)
+                a2 = mp[:, 2].reshape(-1, 1, 1, 1) if mp.shape[1] > 2 else a1
+                src = src * mm * a1 + src * (1 - mm)
+                tgt_i = tgt * mm * a2 + tgt * (1 - mm)
+            pair = (src, tgt_i) if f_i < 0 else (tgt_i, src)
             feats = self.pose_encoder(_nchw(torch.cat(pair, dim=-1)))
             axisangle, translation = self.pose_decoder(feats[-1])
             cam_T_cam[i] = transformation_from_parameters(
                 axisangle[:, 0], translation[:, 0], invert=f_i < 0)
-        return cam_T_cam
+            if c.map_pose:
+                map_logits[i] = self.pose_map_cls(feats[-1].mean(dim=(2, 3)))
+        return cam_T_cam, map_logits
 
     # --------------------------------------------------------------- warps
 
@@ -283,6 +323,55 @@ class TripleDNet(nn.Module):
             feats.append(grid_sample(self._cd(src_f), coords))
         return feats
 
+    def _warp_features_cropped(self, inputs, outputs, disp0, ri, rj):
+        """The rotation pretext's perceptual branch: stage-0 features of each
+        source frame's crop at (ri, rj), warped with the crop of the
+        full-resolution disparity at half the crop's size. The intrinsics
+        are K/2, with no correction for the crop offset, as in the JAX
+        package."""
+        c = self.cfg
+        size = c.pretext_resize
+        disp = crop(resize_bilinear(disp0, c.height, c.width), ri, rj, size)
+        _, depth = disp_to_depth(resize_bilinear(disp, size // 2, size // 2), c.min_depth,
+                                 c.max_depth)
+        K2 = scale_intrinsics(inputs["K"], 0.5, 0.5)
+        inv_K2 = invert_intrinsics(K2)
+        feats = []
+        for i in range(1, c.num_frames):
+            coords = warp_coords(depth, inv_K2, K2, outputs["cam_T_cam"][i])
+            src = crop(inputs["color"][:, i], ri, rj, size)
+            src_f = _nhwc(self._extract(src, stages=1)[0])
+            feats.append(grid_sample(self._cd(src_f), coords))
+        return feats
+
+    def _equivariant_outputs(self, inputs, outputs):
+        """Per source frame: the erase mask warped, nearest, at each scale's
+        disparity, with the JAX package's swapped (K, inv_K) arguments; and
+        the ImageDecoder's decoding of the source's deepest extractor stage
+        warped into the target at that stage's own intrinsics. The JAX
+        package warps all five stages, and its decoder reads the deepest
+        alone; the port warps that one."""
+        c = self.cfg
+        mask = inputs["mask"]
+        res_imgs, masks = {}, {}
+        for i in range(1, c.num_frames):
+            T = outputs["cam_T_cam"][i]
+            masks[i] = []
+            for s in c.scales:
+                disp = resize_bilinear(outputs["disps"][s], c.height, c.width)
+                _, depth = disp_to_depth(disp, c.min_depth, c.max_depth)
+                coords = warp_coords(depth, inputs["K"], inputs["inv_K"], T)
+                masks[i].append(grid_sample(mask, coords, method="nearest"))
+            src_f = _nhwc(self._extract(inputs["color"][:, i])[4])
+            fh, fw = src_f.shape[1], src_f.shape[2]
+            _, depth = disp_to_depth(resize_bilinear(outputs["disps"][0], fh, fw), c.min_depth,
+                                     c.max_depth)
+            Kf = scale_intrinsics(inputs["K"], 1.0 / (c.width // fw), 1.0 / (c.height // fh))
+            coords = warp_coords(depth, invert_intrinsics(Kf), Kf, T)
+            warped = _nchw(grid_sample(src_f, coords))
+            res_imgs[i] = [_nhwc(x) for x in self.image_decoder([None] * 4 + [warped])]
+        return {"res_imgs": res_imgs, "masks": masks}
+
     # -------------------------------------------------------------- losses
 
     def _compute_losses(self, inputs, outputs, features):
@@ -298,12 +387,26 @@ class TripleDNet(nn.Module):
                     feature_regularization_loss(self._cd(_nhwc(f)), target, c.dis, c.cvt)
                     / (2**i) / 5.0)
 
-        if features is not None and c.perception_weight > 0:
-            tgt_f = self._cd(_nhwc(features[0]))
-            warped_feats = self._warp_features(inputs, outputs, outputs["disps"][0])
+        # the equivariant preset has no perceptual term
+        if features is not None and c.perception_weight > 0 and not c.equivariant:
+            if c.im_rot:
+                # crop-matched: the extractor's stage 0 on the target's crop
+                ri, rj = outputs["crop_offset"]
+                tgt_crop = crop(target, ri, rj, c.pretext_resize)
+                tgt_f = self._cd(_nhwc(self._extract(tgt_crop, stages=1)[0]))
+                warped_feats = self._warp_features_cropped(inputs, outputs,
+                                                           outputs["disps"][0], ri, rj)
+            else:
+                tgt_f = self._cd(_nhwc(features[0]))
+                warped_feats = self._warp_features(inputs, outputs, outputs["disps"][0])
             percep = [perceptional_loss(tgt_f, sf) for sf in warped_feats]
             min_percep = torch.cat(percep, dim=-1).min(dim=-1).values
             loss_dict["min_perceptional_loss"] = c.perception_weight * min_percep.mean()
+
+        if c.im_rot:
+            loss_dict["ssl_rot_loss"] = cross_entropy_with_batch_softmax(
+                outputs["rot_predicts"], outputs["rot_gt"]) * c.pretext_weight
+        eq = self._equivariant_outputs(inputs, outputs) if c.equivariant else None
 
         # identity candidates first, so that an exact tie keeps the pixel
         # automasked; they and the target are input frames, so only the
@@ -331,6 +434,10 @@ class TripleDNet(nn.Module):
                 need_target_grad=False)
             loss_dict[f"min_reconstruct_loss/{s}"] = min_rec.mean() / n_scales
 
+            if eq is not None:
+                loss_dict[f"min_equivariant_loss/{s}"] = (
+                    c.equivariant_weight * self._equivariant_loss(inputs, eq, s) / n_scales)
+
             if c.disp_norm:
                 disp = disp / (disp.mean(dim=(1, 2), keepdim=True) + 1e-7)
             loss_dict[f"smooth_loss/{s}"] = (
@@ -352,7 +459,29 @@ class TripleDNet(nn.Module):
         if c.sep_inpaint and c.inpaint_weight > 0:
             loss_dict["distill_inpaint_loss"] = self._sep_loss(
                 target, outputs["sep_inpaint"][0], mask) * c.inpaint_weight
+        if c.map_pose and c.map_pose_weight > 0:
+            for i in range(1, c.num_frames):
+                labels = inputs["map_params"][:, i - 1, 0].long()
+                logp = torch.log_softmax(outputs["map_logits"][i], dim=-1)
+                loss_dict[f"map_pose_loss/{i}"] = (
+                    -logp.gather(1, labels[:, None]).mean() * c.map_pose_weight)
         return loss_dict
+
+    def _equivariant_loss(self, inputs, eq, s):
+        """The least over source frames of the decoded source's SSIM + L1
+        loss against that frame, on the pixels its warped erase mask
+        erased. A frame whose warped mask erased nothing gives 0: the JAX
+        package guards the reference's division there."""
+        losses = []
+        for i in range(1, self.cfg.num_frames):
+            res = eq["res_imgs"][i][s]
+            h, w = res.shape[1], res.shape[2]
+            l = reprojection_loss(res, resize_bilinear(inputs["color"][:, i], h, w))
+            erased = 1 - resize_bilinear(eq["masks"][i][s], h, w)
+            num, denom = (l * erased).sum(), erased.sum()
+            losses.append(torch.where(denom > 0, num, torch.zeros_like(num))
+                          / denom.clamp_min(1.0))
+        return torch.stack(losses).min()
 
     def _sep_loss(self, gt, pred, mask):
         l = perceptional_loss(gt, pred)

@@ -13,7 +13,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tripled_tpu_torch.models.layers import BatchNorm, Conv2d, remat
+from tripled_tpu_torch.models.layers import BatchNorm, Conv2d, conv_bn, remat
 
 BLOCK_COUNTS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
 
@@ -62,9 +62,9 @@ class BasicBlock(nn.Module):
         return convs, bns
 
     def forward(self, x):
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
-        residual = x if self.downsample is None else self.downsample(x)
+        out = F.relu(conv_bn(self.conv1, self.bn1, x))
+        out = conv_bn(self.conv2, self.bn2, out)
+        residual = x if self.downsample is None else conv_bn(*self.downsample, x)
         return F.relu(out + residual if self.use_residual else out)
 
 
@@ -93,10 +93,10 @@ class Bottleneck(nn.Module):
         return convs, bns
 
     def forward(self, x):
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        residual = x if self.downsample is None else self.downsample(x)
+        out = F.relu(conv_bn(self.conv1, self.bn1, x))
+        out = F.relu(conv_bn(self.conv2, self.bn2, out))
+        out = conv_bn(self.conv3, self.bn3, out)
+        residual = x if self.downsample is None else conv_bn(*self.downsample, x)
         return F.relu(out + residual)
 
 
@@ -124,7 +124,7 @@ class ResNetFeatures(nn.Module):
     def _graph_part(self, x, graph_stages: int, cond):
         """The stem and stages 1 .. graph_stages-1; returns their features
         and the next stage's input."""
-        x = _plus(F.relu(self.bn1(self.conv1(x))), cond, 0)
+        x = _plus(F.relu(conv_bn(self.conv1, self.bn1, x)), cond, 0)
         feats = [x]
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         for i, stage in enumerate(self.layers[:graph_stages - 1], start=1):

@@ -1,9 +1,13 @@
-"""Model presets of the port: `mono_baseline` (alias `Baseline`),
-`mono_fm`, `mono_fm_joint`, `mono_fm_joint_inpaint`,
-`mono_fm_joint_inpaint_disentangle` and the five distillation presets
-(`tripled_tpu/models/registry.py:36-100`), and two operating points:
-`mono_fm_bench()` (`bench.py:118-140`) and `flagship_bench()`
-(`configs/cfg_kitti_tripled.py`), both in float32 with the exact warp."""
+"""Model presets of the port, all 16 MONO names and the `Baseline` alias
+(`tripled_tpu/models/registry.py:36-130`): `mono_baseline`, `mono_fm`,
+`mono_fm_joint`, `mono_fm_joint_inpaint`,
+`mono_fm_joint_inpaint_disentangle`, the five distillation presets, the
+rotation pretext `mono_fm_joint_im_rot`, `mono_fm_joint_inpaint_map_pose`,
+`mono_fm_joint_equivariant_inpaint`, and the standalone `autoencoder`,
+`inpainter` and `rotnet`, which `build_model` returns as their own
+modules (`models/aux_nets.py`). Two operating points: `mono_fm_bench()`
+(`bench.py:118-140`) and `flagship_bench()` (`configs/cfg_kitti_tripled.py`),
+both in float32 with the exact warp."""
 
 from __future__ import annotations
 
@@ -44,6 +48,23 @@ def _sep(**flag):
     return preset
 
 
+def _map_pose(c: ModelConfig) -> ModelConfig:
+    return dataclasses.replace(_mono_fm_joint_inpaint(c), map_pose=True)
+
+
+def _equivariant(c: ModelConfig) -> ModelConfig:
+    return dataclasses.replace(_mono_fm_joint_inpaint(c), equivariant=True, use_extractor=True,
+                               use_image_decoder=True)
+
+
+def _im_rot(c: ModelConfig) -> ModelConfig:
+    return dataclasses.replace(_mono_fm_joint(c), im_rot=True, use_image_decoder=False)
+
+
+def _standalone(c: ModelConfig) -> ModelConfig:
+    return c
+
+
 PRESETS = {
     "mono_baseline": _mono_baseline,
     "Baseline": _mono_baseline,
@@ -57,7 +78,17 @@ PRESETS = {
     "mono_fm_joint_inpaint_disentangle_distill_colorize": _mono_fm_joint_inpaint,
     "mono_fm_joint_inpaint_disentangle_distill_sep_colorize": _sep(sep_colorize=True),
     "mono_fm_joint_inpaint_disentangle_distill_sep_inpaint": _sep(sep_inpaint=True),
+    "mono_fm_joint_inpaint_map_pose": _map_pose,
+    "mono_fm_joint_equivariant_inpaint": _equivariant,
+    "mono_fm_joint_im_rot": _im_rot,
+    "autoencoder": _standalone,
+    "inpainter": _standalone,
+    "rotnet": _standalone,
 }
+
+# the pretext presets, whose steps are ported in float32 only
+PRETEXT_PRESETS = ("mono_fm_joint_im_rot", "autoencoder", "inpainter", "rotnet",
+                   "mono_fm_joint_inpaint_map_pose", "mono_fm_joint_equivariant_inpaint")
 
 
 def canonicalize(cfg: ModelConfig) -> ModelConfig:
@@ -65,6 +96,23 @@ def canonicalize(cfg: ModelConfig) -> ModelConfig:
     if cfg.name not in PRESETS:
         raise KeyError(f"unknown model {cfg.name!r}; available: {sorted(PRESETS)}")
     return PRESETS[cfg.name](cfg)
+
+
+def build_model(cfg: ModelConfig):
+    """The module of the preset `cfg.name` (`registry.py:146-158`):
+    `Autoencoder` for autoencoder, the masked one for inpainter, `RotNet`
+    for rotnet, `TripleDNet` for every other name."""
+    from tripled_tpu_torch.models.aux_nets import Autoencoder, RotNet
+    from tripled_tpu_torch.models.net import TripleDNet
+
+    cfg = canonicalize(cfg)
+    if cfg.name == "autoencoder":
+        return Autoencoder(cfg)
+    if cfg.name == "inpainter":
+        return Autoencoder(cfg, masked=True)
+    if cfg.name == "rotnet":
+        return RotNet(cfg)
+    return TripleDNet(cfg)
 
 
 def mono_fm_bench() -> tuple[ModelConfig, DataConfig, OptimConfig]:

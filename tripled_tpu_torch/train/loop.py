@@ -5,8 +5,9 @@ threads and copied to the device ahead of the step, the training step,
 the loss dict read and logged every `log_interval` steps, a checkpoint
 every `checkpoint_interval` epochs and the Eigen eval hook every
 `validate_interval`. Each epoch also logs the host time the loop waited
-for its batches, and how many frames each decoder (the native loader,
-PIL) has decoded so far.
+for its batches, how many frames each decoder (the native loader, PIL)
+has decoded so far, and for the map dataset the host seconds its motion
+masks took so far.
 """
 
 from __future__ import annotations
@@ -53,8 +54,8 @@ def train_mono(
 
     if train_dataset is None:
         train_dataset = get_dataset(cfg.data, training=True)
-    decodes = getattr(train_dataset, "decodes", None)
-    if decodes is not None:
+    counters = getattr(train_dataset, "counters", None)
+    if counters is not None:
         log.info("frames decode with %s", "the native loader" if train_dataset.use_native
                  else "PIL (the native loader is off or did not build)")
     loader = BatchLoader(train_dataset, batch_size=cfg.data.batch_size,
@@ -76,9 +77,11 @@ def train_mono(
 
     optimizer = state.optimizer
     train_step = make_train_step(state.model, optimizer)
-    # the decoder's dropout; seeded from cfg.seed at every start, a resumed
-    # run's included, as the JAX loop restarts PRNGKey(cfg.seed)
+    # the decoder's dropout, and on the CPU the rotation pretext's crop and
+    # labels; seeded from cfg.seed at every start, a resumed run's
+    # included, as the JAX loop restarts PRNGKey(cfg.seed)
     generator = torch.Generator(device).manual_seed(cfg.seed)
+    pretext = torch.Generator().manual_seed(cfg.seed + 1)
 
     evaluator = None
     if cfg.validate and val_dataset is not None:
@@ -101,7 +104,7 @@ def train_mono(
                     wait_s += time.perf_counter() - t_wait
                     if batch is None:
                         break
-                    metrics = train_step(batch, generator)
+                    metrics = train_step(batch, generator, pretext)
                     n_steps += 1
                     if it % cfg.log_interval == 0:
                         m = {k: v.item() for k, v in metrics.items()}
@@ -120,8 +123,8 @@ def train_mono(
                      1e3 * wait_s / max(n_steps, 1))
             row = {"seconds": dt, "steps": n_steps, "images_per_s": n_imgs / max(dt, 1e-9),
                    "loader_wait_s": wait_s}
-            if decodes is not None:
-                row.update({f"decodes_{k}": v for k, v in decodes.items()})
+            if counters is not None:
+                row.update(counters)
             mlogger.log(optimizer.count, row, prefix="epoch/")
 
             if (epoch + 1) % cfg.checkpoint_interval == 0:

@@ -1,5 +1,7 @@
 """Training state (`tripled_tpu/train/state.py`): the model, holding
-parameters and BatchNorm statistics, and its optimizer."""
+parameters and BatchNorm statistics, and its optimizer. The model is the
+preset's module: `TripleDNet`, or for autoencoder, inpainter and rotnet
+their own (`presets.build_model`)."""
 
 from __future__ import annotations
 
@@ -8,13 +10,13 @@ import dataclasses
 import torch
 
 from tripled_tpu_torch.config import ModelConfig, OptimConfig
-from tripled_tpu_torch.models.net import TripleDNet
+from tripled_tpu_torch.presets import build_model
 from tripled_tpu_torch.train.optim import Adam
 
 
 @dataclasses.dataclass
 class TrainState:
-    model: TripleDNet
+    model: torch.nn.Module
     optimizer: Adam
 
 
@@ -24,6 +26,6 @@ def create_train_state(model_cfg: ModelConfig, optim_cfg: OptimConfig, steps_per
     not depend on the device), then moved to `device`."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model = TripleDNet(model_cfg)
+        model = build_model(model_cfg)
     model.to(device)
     return TrainState(model, Adam(model, optim_cfg, steps_per_epoch))

@@ -1,4 +1,12 @@
-"""Train and predict steps (`tripled_tpu/train/step.py:37-105`)."""
+"""Train and predict steps (`tripled_tpu/train/step.py:37-105`).
+
+Two generators draw a step's randomness: `generator`, on the model's
+device, the depth decoder's dropout masks (l4's, then l3's); `pretext`, a
+CPU generator, the rotation pretext's crop offset and labels
+(`models/aux_nets.draw_pretext`: row offset, column offset, one label per
+sample), once per step, before the extractor runs. The JAX step splits
+its key into `dropout`, `automask`, `crop` and `rotation` streams; the
+port draws no automask noise (its kernel breaks ties instead)."""
 
 from __future__ import annotations
 
@@ -7,7 +15,6 @@ from typing import Callable, Dict
 
 import torch
 
-from tripled_tpu_torch.models.net import TripleDNet
 from tripled_tpu_torch.ops.geometry import disp_to_depth
 from tripled_tpu_torch.train.optim import Adam
 
@@ -36,20 +43,23 @@ def cast_floating(model: torch.nn.Module, dtype: torch.dtype):
             module._parameters[name] = p
 
 
-def make_train_step(model: TripleDNet, optimizer: Adam) -> Callable:
-    """step(batch, generator=None) -> metrics: every loss_dict entry, `loss`
-    (their sum) and `grad_norm` (before clipping), as 0-d float32 tensors.
-    `generator` draws the decoder's dropout. Under
+def make_train_step(model: torch.nn.Module, optimizer: Adam) -> Callable:
+    """step(batch, generator=None, pretext=None) -> metrics: every loss_dict
+    entry, `loss` (their sum) and `grad_norm` (before clipping), as 0-d
+    float32 tensors. `model` is any preset's module (`presets.build_model`).
+    `generator` draws the decoder's dropout, `pretext` the rotation
+    pretext's crop and labels. Under
     `compute_dtype="bfloat16"` the loss sees every floating parameter
     rounded to bf16 (`cast_floating`); gradients, parameters and Adam's
     moments stay float32."""
     bf16 = model.cfg.compute_dtype == "bfloat16"
 
-    def train_step(batch: Dict[str, torch.Tensor], generator: torch.Generator | None = None):
+    def train_step(batch: Dict[str, torch.Tensor], generator: torch.Generator | None = None,
+                   pretext: torch.Generator | None = None):
         model.train()
         model.zero_grad(set_to_none=True)
         with cast_floating(model, torch.bfloat16) if bf16 else nullcontext():
-            loss_dict = model(batch, generator)[1]  # no reference to the outputs past here
+            loss_dict = model(batch, generator, pretext)[1]  # no reference to the outputs past here
             total = sum(loss_dict.values())
             total.backward()
         grad_norm = optimizer.step()
@@ -61,7 +71,7 @@ def make_train_step(model: TripleDNet, optimizer: Adam) -> Callable:
     return train_step
 
 
-def make_predict_fn(model: TripleDNet) -> Callable:
+def make_predict_fn(model: torch.nn.Module) -> Callable:
     """Eval-mode prediction: images (B, 1, H, W, 3) -> scale-0 scaled
     disparity (B, h, w, 1), whose inverse is the depth. The parameters are
     not cast: under `compute_dtype="bfloat16"` only the depth encoder's

@@ -12,7 +12,11 @@ they are. The disentangle split (`depth_skips`) has no variables. The
 distillation heads are `BasicBlock_0` and the 1x1 `Conv_0`; the separate
 colorize and inpaint encoders are plain `ResNetFeatures_0` in every model
 (the JAX package does not rematerialise them), their decoders the trunk
-layout.
+layout. The dense heads (`rot_head`, `pose_map_cls`, RotNet's `head`) go
+from flax's (in, out) kernel to nn.Linear's (out, in) weight. The
+standalone Autoencoder and RotNet are `encoder` (a plain
+`ResNetFeatures_0` whatever the config's remat: the JAX modules do not
+rematerialise), `decoder` and `head`.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from tripled_tpu_torch.models.aux_nets import Autoencoder, Dense, RotNet
 from tripled_tpu_torch.models.decoders import ColorDecoder, ImageDecoder
 from tripled_tpu_torch.models.depth_decoder import DepthDecoder
 from tripled_tpu_torch.models.encoders import DepthEncoder, Extractor, PoseEncoder
@@ -111,8 +116,13 @@ class _Loader:
         for j, head in enumerate(dec.heads):
             self.conv(head.conv, path + (f"Conv3x3_{j}", "Conv_0"))
 
+    def dense(self, m: Dense, path):
+        kernel = self._pop(self.params, path + ("kernel",))
+        self._write(m.weight, kernel.T, path + ("kernel",))
+        self._write(m.bias, self._pop(self.params, path + ("bias",)), path + ("bias",))
+
     def module(self, m: nn.Module, path=()):
-        if isinstance(m, TripleDNet):
+        if isinstance(m, (TripleDNet, Autoencoder, RotNet)):
             for name, child in m.named_children():
                 self.module(child, path + (name,))
         elif isinstance(m, (DepthEncoder, PoseEncoder, Extractor)):
@@ -129,6 +139,8 @@ class _Loader:
             self.depth_decoder(m, path)
         elif isinstance(m, (ImageDecoder, ColorDecoder)):
             self.trunk_decoder(m, path)
+        elif isinstance(m, Dense):
+            self.dense(m, path)
         elif isinstance(m, DistillHead):
             self.block(m.block, path + ("BasicBlock_0",))
             self.conv(m.conv, path + ("Conv_0",))
