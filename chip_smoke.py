@@ -100,6 +100,27 @@ Phases, each printed as one JSON line with its wall time:
            its motion masks: ms/step, the host's wait per step, the motion
            masks' CPU ms per batch summed over the loader's threads, and
            one batch's motion masks timed on one thread alone
+  reference_segmentation  (after reference_pretext) each of the three
+           segmentation models (`models/segmentation.py`) cut small (R18
+           encoders, 64x160, batch 4, 20 classes): one train step on the CPU
+           and two on the card, the loss, gradient norm and log-probabilities
+           bounded as reference_distill
+  segmentation  (after pretext) a line per segmentation model at the port's
+           copy of `cfg_kitti_fm_joint_inpaint_segmentation.py` (R50 depth
+           encoder, R50 extractor for BaseSegmentationFeat, 192x640, batch
+           12, f32): 1 warm-up step, 3 timed steps, ms/step, images/s, peak
+           memory, the eval forward of one image, and the profile of 3 more
+           steps (device-busy time, idle share)
+  train_cli_segmentation  (after train_cli_map) `cli.train_segmentation` on
+           that config over a synthetic Cityscapes tree at 1024x2048 (3
+           steps of train frames, 4 test frames), `--model
+           FixSegmentationDepth --depth_checkpoint` on a random-weight
+           checkpoint of the config's own depth model, 1 epoch with its eval
+           hook; the encoder must start as the checkpoint's depth encoder and
+           keep its parameters while its BatchNorm statistics move; then
+           `cli.eval_segmentation` on the epoch-1 checkpoint, which must give
+           the hook's mIoU and accuracy; ms/step, the host's wait, and one
+           batch's train transforms on one thread
   probe    `python -m tripled_tpu_torch.dev.element_probe`'s main() on the card
 Then the kernel summary line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Any failure raises and exits
@@ -150,6 +171,13 @@ BWD_COMBINE_FLOPS = 4
 def phase(name, t0, **fields):
     print(json.dumps({"phase": name, "seconds": round(time.perf_counter() - t0, 3), **fields}),
           flush=True)
+
+
+def reset_launches(photometric):
+    """Set the photometric kernels' launch counts to 0."""
+    for k in photometric.launches:
+        photometric.launches[k] = 0
+    photometric.launches_by_dtype.clear()
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -427,9 +455,10 @@ def family(name: str) -> str:
     return "other"
 
 
-def profile_step(step, batch, gen):
+def profile_step(step, batch, gen, photometric=True):
     """STEPS steps under torch.profiler: wall and device-busy ms per step,
-    the device's idle share, device ms by kernel family, the top kernels."""
+    the device's idle share, device ms by kernel family, the top kernels;
+    with `photometric`, both photometric kernels must be among them."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -455,7 +484,7 @@ def profile_step(step, batch, gen):
     for name, ms in by_kernel.items():
         by_family[family(name)] += ms
     photometric_kernels = sorted(n for n in by_kernel if family(n) == FAMILIES[0][0])
-    for kernel in ("fwd_tile_kernel", "bwd_tile_kernel"):
+    for kernel in ("fwd_tile_kernel", "bwd_tile_kernel") if photometric else ():
         if not any(kernel in n for n in photometric_kernels):
             raise AssertionError(f"no {kernel} in the photometric family: {photometric_kernels}")
     return {"wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
@@ -546,9 +575,7 @@ def train_path(photometric, dev, seed, model_cfg, data_cfg, optim_cfg, timed=Tru
         return state, step, batch, dropout_gen, {"first_step_metrics": first}
 
     torch.cuda.reset_peak_memory_stats(dev)
-    for k in photometric.launches:
-        photometric.launches[k] = 0
-    photometric.launches_by_dtype.clear()
+    reset_launches(photometric)
     t1 = time.perf_counter()
     for _ in range(STEPS):
         metrics = step(batch, dropout_gen)
@@ -999,9 +1026,7 @@ def train_cli_fast_path(photometric, dev, tree, tmp):
         steps_per_epoch = (tree["num_frames"] - 2) // cfg.data.batch_size
         n_steps = 2 * steps_per_epoch
         torch.cuda.reset_peak_memory_stats(dev)
-        for k in photometric.launches:
-            photometric.launches[k] = 0
-        photometric.launches_by_dtype.clear()
+        reset_launches(photometric)
         # the earlier phases' garbage (the profiler's) goes now, not in a
         # full collection inside the run's steps (2.1 s in one run)
         gc.collect()
@@ -1245,9 +1270,7 @@ def train_cli_preset_path(photometric, dev, tree, tmp, config_name, term, descri
         raise AssertionError(f"the CLI's config differs from {config_name} beyond the data")
     steps = (tree["num_frames"] - 2) // cfg.data.batch_size
     torch.cuda.reset_peak_memory_stats(dev)
-    for k in photometric.launches:
-        photometric.launches[k] = 0
-    photometric.launches_by_dtype.clear()
+    reset_launches(photometric)
     gc.collect()
     with env_vars(TRIPLED_SPLITS_DIR=tree["splits_dir"]):
         t0 = time.perf_counter()
@@ -1373,6 +1396,277 @@ def pretext_phases(photometric, dev, seed, card):
     return launches
 
 
+# segmentation: the port's copy of the shipped config, whose model config
+# gives the encoders (R50 depth, R50 extractor) and whose data the size
+# (192x640, batch 12); the three models of `models/segmentation.py`
+SEG_CONFIG = "cfg_kitti_fm_joint_inpaint_segmentation.py"
+SEG_CLI_MODEL = "FixSegmentationDepth"  # the config's SEGMENTATION_MODEL
+NUM_CLASSES = 20
+
+
+def seg_config():
+    from tripled_tpu_torch.config import load_config
+
+    return load_config(os.path.join(CONFIG_DIR, SEG_CONFIG))
+
+
+def reference_segmentation(dev, seed):
+    """Each segmentation model cut small (R18 encoders, 64x160, batch 4, 20
+    classes), one train step on the CPU and two on the card from the same
+    weights and batch, float32: the loss and the gradient norm each within
+    three times the card's own spread plus 1e-4 of the CPU's value, and
+    the train-mode log-probabilities within three times the spread plus
+    1e-4 of their largest magnitude."""
+    from tripled_tpu_torch.models.segmentation import SEGMENTATION
+    from tripled_tpu_torch.train.state import create_segmentation_state
+    from tripled_tpu_torch.train.step import make_segmentation_train_step
+    from tripled_tpu_torch.utils.inputs import random_segmentation_inputs
+
+    small = dataclasses.replace(seg_config().model, depth_num_layers=18,
+                                extractor_num_layers=18, height=64, width=160)
+    tol = REFERENCE_TOL["float32"]["loss"]
+    out = {}
+    for name in SEGMENTATION:
+        runs = {}
+        for label, device in [("cpu", "cpu"), ("card", dev), ("card again", dev)]:
+            state = create_segmentation_state(small, dataclasses.replace(
+                seg_config().optim, warmup_iters=2), 100, name, NUM_CLASSES, seed=seed,
+                device=device)
+            step = make_segmentation_train_step(state.model, state.optimizer)
+            metrics, outputs = step(random_segmentation_inputs(4, 64, 160, seed, NUM_CLASSES,
+                                                               device=device))
+            runs[label] = ({k: float(v) for k, v in metrics.items()},
+                           outputs["log_probs"].cpu())
+        (cpu, lp_cpu), (gpu, lp_gpu), (again, lp_again) = runs.values()
+        rel = {k: abs(gpu[k] - cpu[k]) / abs(cpu[k]) for k in cpu}
+        rel_spread = {k: abs(again[k] - gpu[k]) / abs(cpu[k]) for k in cpu}
+        lp_scale = lp_cpu.abs().max().item()
+        lp_err = (lp_gpu - lp_cpu).abs().max().item()
+        lp_spread = (lp_again - lp_gpu).abs().max().item()
+        bad = {k: r for k, r in rel.items() if r > 3 * rel_spread[k] + tol}
+        if lp_err > 3 * lp_spread + tol * lp_scale:
+            bad["log_probs"] = lp_err
+        if bad or not all(math.isfinite(v) for v in gpu.values()):
+            raise AssertionError(f"{name}: the card step disagrees with the CPU's: {bad} {runs}")
+        out[name] = {"rel_diff": rel, "card_rel_spread": rel_spread,
+                     "log_probs_max_abs_diff": lp_err, "log_probs_card_spread": lp_spread,
+                     "log_probs_max_abs": lp_scale, "cpu": cpu}
+    return out
+
+
+def segmentation_phases(photometric, dev, seed, card):
+    """Phase segmentation, a line per model at the shipped config's size
+    from random weights: 1 warm-up step, STEPS timed steps (ms/step,
+    images/s, peak memory), the eval forward of one image, and the profile
+    of STEPS more steps; returns the photometric launches by path (none
+    expected)."""
+    from tripled_tpu_torch.models.segmentation import SEGMENTATION
+    from tripled_tpu_torch.train.state import create_segmentation_state
+    from tripled_tpu_torch.train.step import make_segmentation_train_step
+    from tripled_tpu_torch.utils.inputs import random_segmentation_inputs
+
+    cfg = seg_config()
+    m, bs = cfg.model, cfg.data.batch_size
+    launches = {}
+    for name in SEGMENTATION:
+        t0 = time.perf_counter()
+        state = create_segmentation_state(m, cfg.optim, 100, name, NUM_CLASSES, seed=seed,
+                                          device=dev)
+        step = make_segmentation_train_step(state.model, state.optimizer)
+        batch = random_segmentation_inputs(bs, m.height, m.width, seed, NUM_CLASSES, device=dev)
+        first = {k: float(v) for k, v in step(batch)[0].items()}  # warm-up
+        warm_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches(photometric)
+        t1 = time.perf_counter()
+        for _ in range(STEPS):
+            metrics = step(batch)[0]
+        metrics = {k: float(v) for k, v in metrics.items()}  # synchronises
+        step_s = (time.perf_counter() - t1) / STEPS
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        launches[f"segmentation {name}"] = dict(photometric.launches)
+        if not all(math.isfinite(v) for v in {**first, **metrics}.values()):
+            raise AssertionError(f"{name}: non-finite metrics {first} {metrics}")
+        model = state.model.eval()
+        image = batch["image"][:1]
+        with torch.no_grad():
+            lp = model({"image": image})
+            eval_ms = cuda_ms(lambda: model({"image": image}), iters=10)
+        if tuple(lp.shape) != (1, m.height, m.width, NUM_CLASSES) or not bool(
+                torch.isfinite(lp).all()) or (lp.exp().sum(-1) - 1).abs().max().item() > 1e-4:
+            raise AssertionError(f"{name}: eval log-probabilities {tuple(lp.shape)} wrong")
+        profile = profile_step(lambda b, g: step(b), batch, None, photometric=False)
+        enc = m.extractor_num_layers if SEGMENTATION[name]["encoder_source"] == "feat" \
+            else m.depth_num_layers
+        phase("segmentation", t0, model=name, config=f"tripled_tpu_torch/configs/{SEG_CONFIG}",
+              card=card, encoder=f"{SEGMENTATION[name]['encoder_source']} R{enc}",
+              freeze_encoder=SEGMENTATION[name]["freeze_encoder"],
+              shape={"height": m.height, "width": m.width, "batch": bs, "classes": NUM_CLASSES},
+              warmup_step_s=warm_s, ms_per_step=step_s * 1e3, images_per_s=bs / step_s,
+              peak_memory_gib=peak, eval_ms_one_image=eval_ms,
+              device_busy_ms_per_step=profile["device_busy_ms_per_step"],
+              device_idle_share=profile["device_idle_share"], profile=profile,
+              first_step_metrics=first, metrics=metrics,
+              launches=launches[f"segmentation {name}"])
+        del state, step, batch, model, lp
+        torch.cuda.empty_cache()
+    return launches
+
+
+SEG_CLI_CONFIG = """
+import dataclasses
+
+from tripled_tpu_torch.config import load_config
+
+base = load_config({base!r})
+config = dataclasses.replace(
+    base,
+    data=dataclasses.replace(base.data, in_path={root!r}),
+    optim=dataclasses.replace(base.optim, total_epochs=1),
+    work_dir={work!r},
+    log_interval=1,
+)
+"""
+
+
+def train_cli_segmentation_path(photometric, dev, seed, tmp):
+    """The segmentation train CLI on the port's copy of the shipped config
+    (data root, epochs, work dir and log interval replaced) over a
+    synthetic Cityscapes tree at 1024x2048 (3 steps of train frames, 4 test
+    frames), with `--model FixSegmentationDepth --depth_checkpoint` on a
+    random-weight checkpoint of the config's own depth model, 1 epoch with
+    its eval hook; then the eval CLI on the epoch-1 checkpoint, which must
+    give the hook's scores. The encoder must start as the checkpoint's
+    depth encoder and keep its parameters (frozen, weight decay 0) while
+    its BatchNorm statistics move. Also the host's time for one batch's
+    train transforms, and one test sample's, on one thread."""
+    import numpy as np
+
+    from tripled_tpu_torch.cli import eval_segmentation, train_segmentation
+    from tripled_tpu_torch.config import load_config
+    from tripled_tpu_torch.data.seg_datasets import (
+        get_segmentation_train_dataset,
+        get_test_segmentation_dataset,
+    )
+    from tripled_tpu_torch.data.synthetic import make_cityscapes_seg_tree
+    from tripled_tpu_torch.train import checkpoint as ckpt
+    from tripled_tpu_torch.train import step as step_module
+    from tripled_tpu_torch.train.state import create_train_state
+
+    base = seg_config()
+    steps, bs = STEPS, base.data.batch_size
+    t0 = time.perf_counter()
+    root = make_cityscapes_seg_tree(os.path.join(tmp, "cityscapes"),
+                                    {"train": steps * bs, "test": 4}, 1024, 2048, seed=seed)
+    tree_s = time.perf_counter() - t0
+
+    depth = create_train_state(base.model, base.optim, steps_per_epoch=1, seed=seed + 1,
+                               device=dev)
+    depth_path = ckpt.save_checkpoint(os.path.join(tmp, "depth"), depth, 0)
+    encoder = {k: v.clone() for k, v in depth.model.depth_encoder.state_dict().items()}
+    del depth
+    torch.cuda.empty_cache()
+
+    work = os.path.join(tmp, "work_segmentation")
+    config = os.path.join(tmp, "cfg_segmentation.py")
+    with open(config, "w") as f:
+        f.write(SEG_CLI_CONFIG.format(base=os.path.join(CONFIG_DIR, SEG_CONFIG), root=root,
+                                      work=work))
+    cfg = load_config(config)
+    if (cfg.model, dataclasses.replace(cfg.data, in_path=base.data.in_path)) != (
+            base.model, base.data):
+        raise AssertionError(f"the CLI's config differs from {SEG_CONFIG} beyond the data root")
+
+    start = {}
+    make_step = step_module.make_segmentation_train_step
+
+    def recording(model, optimizer):  # the encoder as the CLI hands it to the step
+        start.update({k: v.clone() for k, v in model.encoder.state_dict().items()})
+        return make_step(model, optimizer)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches(photometric)
+    step_module.make_segmentation_train_step = recording
+    try:
+        t0 = time.perf_counter()
+        state, history = train_segmentation.main(
+            ["--config", config, "--model", SEG_CLI_MODEL, "--depth_checkpoint", depth_path,
+             "--max_steps_per_epoch", str(steps), "--device", str(dev)])
+        run_s = time.perf_counter() - t0
+    finally:
+        step_module.make_segmentation_train_step = make_step
+    launches = dict(photometric.launches)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+
+    if start.keys() != encoder.keys() or not all(torch.equal(start[k], v)
+                                                 for k, v in encoder.items()):
+        raise AssertionError("the encoder did not start as the checkpoint's depth encoder")
+    after = state.model.encoder.state_dict()
+    params = [n for n, _ in state.model.encoder.named_parameters()]
+    stats = [k for k in after if "running" in k]
+    changed = [k for k in params if not torch.equal(after[k], encoder[k])]
+    still = [k for k in stats if torch.equal(after[k], encoder[k])]
+    if changed or still or state.optimizer.count != steps:
+        raise AssertionError(f"{SEG_CLI_MODEL}: parameters changed {changed[:4]}, statistics "
+                             f"unmoved {still[:4]}, {state.optimizer.count} steps")
+    del state
+    torch.cuda.empty_cache()
+
+    with open(os.path.join(work, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    train_rows = [r for r in rows if "train/seg_ce_loss" in r]
+    (epoch_row,) = [r for r in rows if "epoch/loader_wait_s" in r]
+    (val,) = [r for r in rows if "val/miou" in r]
+    hook = history[0]
+    if len(train_rows) != steps or not all(math.isfinite(r["train/seg_ce_loss"])
+                                           for r in train_rows):
+        raise AssertionError(f"train rows {train_rows}")
+    if (val["val/miou"], val["val/acc"]) != (hook["meaniou"], hook["meanacc"]) or not (
+            0 <= hook["meaniou"] <= 1):
+        raise AssertionError(f"eval hook {val} {hook['meaniou']} {hook['meanacc']}")
+
+    t0 = time.perf_counter()
+    m = eval_segmentation.main(["--config", config, "--checkpoint",
+                                os.path.join(work, "ckpt", "epoch_1"), "--model", SEG_CLI_MODEL,
+                                "--device", str(dev)])
+    eval_s = time.perf_counter() - t0
+    if (m["meaniou"], m["meanacc"]) != (hook["meaniou"], hook["meanacc"]):
+        raise AssertionError(f"eval CLI {m['meaniou']} {m['meanacc']} against the hook's "
+                             f"{hook['meaniou']} {hook['meanacc']}")
+
+    # the host's transforms alone, one thread
+    train_ds = get_segmentation_train_dataset(cfg.data)
+    t0 = time.perf_counter()
+    for i in range(bs):
+        train_ds.sample(i, np.random.RandomState(i))
+    batch_s = time.perf_counter() - t0
+    test_ds = get_test_segmentation_dataset(cfg.data, val=False)
+    t0 = time.perf_counter()
+    test_ds.sample(0, np.random.RandomState(0))
+    test_s = time.perf_counter() - t0
+
+    step_ms = step_times(train_rows, steps)
+    return {"config": f"tripled_tpu_torch/configs/{SEG_CONFIG} (R50 depth encoder frozen, "
+            "Cityscapes: Resize(512, 1024), RandomRescale(1.5), RandomCrop(192, 640), batch "
+            "12, 20 classes); data root, epochs, work dir and log interval replaced",
+            "model": SEG_CLI_MODEL,
+            "tree": {"train": steps * bs, "test": 4, "height": 1024, "width": 2048,
+                     "seconds": tree_s},
+            "steps": steps, "run_seconds": run_s, "ms_per_step_after_first": step_ms,
+            "ms_per_step": sum(step_ms) / len(step_ms),
+            "images_per_s": bs / (sum(step_ms) / len(step_ms) / 1e3),
+            "loader_wait_s": epoch_row["epoch/loader_wait_s"],
+            "loader_wait_ms_per_step": 1e3 * epoch_row["epoch/loader_wait_s"] / steps,
+            "host_batch_transforms_s_one_thread": batch_s,
+            "host_test_sample_s_one_thread": test_s,
+            "losses": [r["train/seg_ce_loss"] for r in train_rows],
+            "eval_hook": {"miou": hook["meaniou"], "acc": hook["meanacc"]},
+            "eval_cli": {"miou": m["meaniou"], "acc": m["meanacc"], "seconds": eval_s},
+            "encoder_start_equals_depth_checkpoint": True,
+            "encoder_parameters_unchanged": len(params), "encoder_statistics_moved": len(stats),
+            "peak_memory_gib": peak, "launches": launches}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1450,6 +1744,10 @@ def main():
     phase("reference_pretext", t0, tolerance=REFERENCE_TOL["float32"],
           bound="3 x the card's run-to-run spread + tolerance x |cpu|",
           presets=reference_pretext(dev, args.seed))
+    t0 = time.perf_counter()
+    phase("reference_segmentation", t0, tolerance=REFERENCE_TOL["float32"]["loss"],
+          bound="3 x the card's run-to-run spread + tolerance x |cpu| (log_probs: x max|cpu|)",
+          models=reference_segmentation(dev, args.seed))
 
     t0 = time.perf_counter()
     model_cfg, data_cfg, optim_cfg = mono_fm_bench()
@@ -1476,7 +1774,8 @@ def main():
                                                     flagship_cfg, flagship_data, flagship_optim)
     launches_by_path = {"train": train_launches, **launches_by_path,
                         **distill_phases(photometric, dev, args.seed, card),
-                        **pretext_phases(photometric, dev, args.seed, card)}
+                        **pretext_phases(photometric, dev, args.seed, card),
+                        **segmentation_phases(photometric, dev, args.seed, card)}
 
     with tempfile.TemporaryDirectory(prefix="train_cli_") as tmp:
         t0 = time.perf_counter()
@@ -1526,6 +1825,12 @@ def main():
         map_cli["motion_mask_ms_per_batch_one_thread"] = motion_masks_alone(
             PRETEXT[MAP_CLI][0], args.seed)
         phase("train_cli_map", t0, card=card, preset=MAP_CLI, **map_cli)
+
+    with tempfile.TemporaryDirectory(prefix="train_cli_segmentation_") as tmp:
+        t0 = time.perf_counter()
+        seg_cli = train_cli_segmentation_path(photometric, dev, args.seed, tmp)
+        launches_by_path["train_cli_segmentation"] = seg_cli["launches"]
+        phase("train_cli_segmentation", t0, card=card, **seg_cli)
 
     t0 = time.perf_counter()
     for k in probe.launches:

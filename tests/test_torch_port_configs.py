@@ -1,9 +1,11 @@
 """The port's experiment configs against the JAX package's, field by field:
 `tripled_tpu_torch/configs/X.py` through the port's `load_config` and
-`configs/X.py` through the JAX one, for the 18 configs that name ported
-presets. Every DataConfig, OptimConfig and top-level ExperimentConfig
+`configs/X.py` through the JAX one, for all 19 configs (the segmentation
+config's model is the depth model whose encoders the segmentation models
+take). Every DataConfig, OptimConfig and top-level ExperimentConfig
 field is equal, and so is every field of the port's ModelConfig, before
-and after each package's `canonicalize`. The LR schedule is held against
+and after each package's `canonicalize`; so are the segmentation config's
+`SEGMENTATION_MODEL` and `NUM_CLASSES`. The LR schedule is held against
 the JAX optimizer's to 1e-6 relative.
 
 The JAX configs import `from _common import ...` with their directory on
@@ -39,7 +41,7 @@ CONFIGS = ["cfg_folder", "cfg_kitti_fm", "cfg_kitti_fm_joint", "cfg_kitti_fm_joi
            "cfg_kitti_fm_joint_inpaint_disentangle_distill_full_inpaint",
            "cfg_kitti_fm_joint_im_rot", "cfg_kitti_autoencoder", "cfg_kitti_inpainter",
            "cfg_kitti_rotnet", "cfg_kitti_fm_joint_inpaint_mappose",
-           "cfg_kitti_fm_joint_inpaint_equivariant"]
+           "cfg_kitti_fm_joint_inpaint_equivariant", "cfg_kitti_fm_joint_inpaint_segmentation"]
 
 
 def _load_jax(name):
@@ -91,6 +93,19 @@ def test_both_load_orders_in_one_process(first, monkeypatch):
             p = _load_port(name)
             j = _load_jax(name)
         _assert_same(j, p)
+
+
+def test_segmentation_config_names_match_jax():
+    def names(path):
+        tree = ast.parse(path.read_text())
+        return {t.id: ast.literal_eval(node.value) for node in tree.body
+                if isinstance(node, ast.Assign) for t in node.targets
+                if isinstance(t, ast.Name) and t.id in ("SEGMENTATION_MODEL", "NUM_CLASSES")}
+
+    name = "cfg_kitti_fm_joint_inpaint_segmentation.py"
+    port = names(REPO / "tripled_tpu_torch" / "configs" / name)
+    assert port == names(REPO / "configs" / name)
+    assert port == {"SEGMENTATION_MODEL": "FixSegmentationDepth", "NUM_CLASSES": 20}
 
 
 def test_load_config_refuses_a_jax_config():

@@ -538,3 +538,51 @@ def test_distill_step_on_the_card_matches_the_cpu(name, cuda_device, monkeypatch
         assert math.isfinite(gpu[k])
         spread = abs(again[k] - gpu[k])
         assert abs(gpu[k] - cpu[k]) <= 3 * spread + 1e-4 * abs(cpu[k]), (k, gpu[k], cpu[k])
+
+
+def _small_segmentation_step(device, name):
+    from tripled_tpu_torch.config import ModelConfig, OptimConfig
+    from tripled_tpu_torch.train.state import create_segmentation_state
+    from tripled_tpu_torch.train.step import make_segmentation_train_step
+    from tripled_tpu_torch.utils.inputs import random_segmentation_inputs
+
+    cfg = ModelConfig(name="mono_fm_joint_inpaint", depth_num_layers=18, extractor_num_layers=18,
+                      height=64, width=160)
+    state = create_segmentation_state(cfg, OptimConfig(warmup_iters=2), 100, name, seed=0,
+                                      device=device)
+    metrics, outputs = make_segmentation_train_step(state.model, state.optimizer)(
+        random_segmentation_inputs(4, 64, 160, seed=0, device=device))
+    return {k: float(v) for k, v in metrics.items()}, outputs["log_probs"].cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["BaseSegmentationDepth", "BaseSegmentationFeat",
+                                  "FixSegmentationDepth"])
+def test_segmentation_step_on_the_card_matches_the_cpu(name, cuda_device, monkeypatch):
+    """The bound of chip_smoke.py's reference_segmentation: the loss, the
+    gradient norm and the log-probabilities within three times the card's
+    run-to-run spread plus 1e-4 of the CPU's value (the log-probabilities:
+    of their largest magnitude)."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    (gpu, lp), (again, lp_again) = (_small_segmentation_step(cuda_device, name)
+                                    for _ in range(2))
+    cpu, lp_cpu = _small_segmentation_step("cpu", name)
+    for k in cpu:
+        assert math.isfinite(gpu[k])
+        spread = abs(again[k] - gpu[k])
+        assert abs(gpu[k] - cpu[k]) <= 3 * spread + 1e-4 * abs(cpu[k]), (k, gpu[k], cpu[k])
+    spread = (lp_again - lp).abs().max().item()
+    assert (lp - lp_cpu).abs().max().item() <= 3 * spread + 1e-4 * lp_cpu.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_predict_labels_on_the_card_match_the_cpu(cuda_device):
+    from tripled_tpu_torch.eval.segmentation_metrics import predict_labels
+
+    lp = torch.from_numpy(np.random.RandomState(0).randn(1, 48, 160, 20).astype(np.float32))
+    for size in ((48, 160), (256, 512)):
+        got = predict_labels(lp.to(cuda_device), *size).cpu()
+        want = predict_labels(lp, *size)
+        # bilinear weights in float32 on both: a near-tie may flip
+        assert (got != want).float().mean().item() <= 1e-4, size

@@ -274,3 +274,56 @@ def make_kitti_tree(
         "width": width,
         "num_frames": num_frames,
     }
+
+
+# ------------------------------------------------------- segmentation trees
+# Not in the JAX package's synthetic.py: `make_kitti_seg_tree` writes what
+# `tests/test_seg_train_cli.py` writes; `make_cityscapes_seg_tree` the
+# Cityscapes directory layout.
+
+
+def make_kitti_seg_tree(root: str, num_frames: int = 10, height: int = 64, width: int = 96,
+                        seed: int = 0) -> str:
+    """KITTI semseg layout: `training/image_2/<i>_10.png`, uniform noise
+    frames, and `training/semantic/<i>_10.png`, raw ids drawn from 0-33 per
+    pixel. Returns `root`."""
+    img_dir = os.path.join(root, "training", "image_2")
+    lab_dir = os.path.join(root, "training", "semantic")
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(lab_dir, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    for i in range(num_frames):
+        img = (rng.rand(height, width, 3) * 255).astype(np.uint8)
+        lab = rng.randint(0, 34, (height, width)).astype(np.uint8)
+        Image.fromarray(img).save(os.path.join(img_dir, f"{i:06d}_10.png"))
+        Image.fromarray(lab).save(os.path.join(lab_dir, f"{i:06d}_10.png"))
+    return root
+
+
+def make_cityscapes_seg_tree(root: str, frames=None, height: int = 1024, width: int = 2048,
+                             block: int = 16, seed: int = 0, cities=("aachen", "bochum")) -> str:
+    """Cityscapes layout: `leftImg8bit/<split>/<city>/<city>_<seq>_<frame>_leftImg8bit.png`
+    and beside each `gtFine/<split>/<city>/..._gtFine_labelIds.png`, raw ids
+    0-33 constant over `block` x `block` squares. `frames` maps each split to
+    its frame count (default train 4, val 2, test 2), spread over `cities`.
+    Each square of a frame takes its id's colour from a fixed palette, under
+    a vertical gradient: a toy scene that PNG stores small and quickly (a
+    real Cityscapes frame compresses far less). Returns `root`."""
+    frames = frames or {"train": 4, "val": 2, "test": 2}
+    rng = np.random.RandomState(seed)
+    palette = rng.randint(0, 256, (34, 3)).astype(np.float32)
+    shade = np.linspace(0, 60, height, dtype=np.float32)[:, None, None]
+    for split, n in frames.items():
+        for i in range(n):
+            city = cities[i % len(cities)]
+            stem = f"{city}_{i:06d}_000019"
+            img_dir = os.path.join(root, "leftImg8bit", split, city)
+            lab_dir = os.path.join(root, "gtFine", split, city)
+            os.makedirs(img_dir, exist_ok=True)
+            os.makedirs(lab_dir, exist_ok=True)
+            ids = rng.randint(0, 34, (-(-height // block), -(-width // block))).astype(np.uint8)
+            lab = ids.repeat(block, 0).repeat(block, 1)[:height, :width]
+            img = np.clip(palette[lab] * 0.75 + shade, 0, 255).astype(np.uint8)
+            Image.fromarray(img).save(os.path.join(img_dir, f"{stem}_leftImg8bit.png"))
+            Image.fromarray(lab).save(os.path.join(lab_dir, f"{stem}_gtFine_labelIds.png"))
+    return root

@@ -71,6 +71,28 @@ def make_train_step(model: torch.nn.Module, optimizer: Adam) -> Callable:
     return train_step
 
 
+def make_segmentation_train_step(model: torch.nn.Module, optimizer: Adam) -> Callable:
+    """step(batch) -> (metrics, outputs) for a `SegmentationNet`
+    (`tripled_tpu/cli/train_segmentation.py:102-119`): the gradient of
+    `seg_ce_loss` over {'image' (B, H, W, 3), 'label' (B, H, W)}, the
+    BatchNorm statistics moved by the train-mode forward, and one Adam
+    update over every parameter (a frozen encoder's gradient counts as
+    zero). metrics: `seg_ce_loss` and `grad_norm` (before clipping), 0-d
+    tensors; outputs: the train-mode `log_probs`, detached."""
+
+    def train_step(batch: Dict[str, torch.Tensor]):
+        model.train()
+        model.zero_grad(set_to_none=True)
+        outputs, loss_dict = model(batch)
+        loss = loss_dict["seg_ce_loss"]
+        loss.backward()
+        grad_norm = optimizer.step()
+        return ({"seg_ce_loss": loss.detach(), "grad_norm": grad_norm},
+                {k: v.detach() for k, v in outputs.items()})
+
+    return train_step
+
+
 def make_predict_fn(model: torch.nn.Module) -> Callable:
     """Eval-mode prediction: images (B, 1, H, W, 3) -> scale-0 scaled
     disparity (B, h, w, 1), whose inverse is the depth. The parameters are

@@ -37,3 +37,17 @@ def random_train_inputs(batch: int, height: int, width: int, seed: int = 0,
         arrays["mask"] = np.stack([make_erase_mask(rng, height, width, erase_shape, erase_count)
                                    for _ in range(batch)])
     return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+
+
+def random_segmentation_inputs(batch: int, height: int, width: int, seed: int = 0,
+                               num_classes: int = 20, device="cuda") -> dict:
+    """image (B, H, W, 3), uniform frames normalised as the segmentation
+    datasets normalise them (ImageNet mean and std), and label (B, H, W)
+    int32 train ids in [0, num_classes), the void id 19 among them."""
+    from tripled_tpu_torch.data.seg_transforms import IMAGENET_MEAN, IMAGENET_STD
+
+    rng = np.random.RandomState(seed)
+    image = (rng.rand(batch, height, width, 3).astype(np.float32) - IMAGENET_MEAN) / IMAGENET_STD
+    label = rng.randint(0, num_classes, (batch, height, width)).astype(np.int32)
+    return {"image": torch.from_numpy(image).to(device),
+            "label": torch.from_numpy(label).to(device)}

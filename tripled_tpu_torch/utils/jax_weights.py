@@ -16,7 +16,10 @@ layout. The dense heads (`rot_head`, `pose_map_cls`, RotNet's `head`) go
 from flax's (in, out) kernel to nn.Linear's (out, in) weight. The
 standalone Autoencoder and RotNet are `encoder` (a plain
 `ResNetFeatures_0` whatever the config's remat: the JAX modules do not
-rematerialise), `decoder` and `head`.
+rematerialise), `decoder` and `head`. A `SegmentationNet` is `encoder` (a
+depth encoder or an extractor, `ResNetFeatures_0`) and `decoder`: its 1x1
+`Conv1x1_0`, then `ConvBlock_0..6` (per skip level its upconv and its
+merge, then the last block) and the head `Conv3x3_0`.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from tripled_tpu_torch.models.encoders import DepthEncoder, Extractor, PoseEncod
 from tripled_tpu_torch.models.net import DistillHead, TripleDNet
 from tripled_tpu_torch.models.pose_decoder import PoseDecoder
 from tripled_tpu_torch.models.resnet import Bottleneck, ResNetFeatures
+from tripled_tpu_torch.models.segmentation import SegDecoder, SegmentationNet
 
 
 def _copy(tree):
@@ -116,13 +120,20 @@ class _Loader:
         for j, head in enumerate(dec.heads):
             self.conv(head.conv, path + (f"Conv3x3_{j}", "Conv_0"))
 
+    def seg_decoder(self, dec: SegDecoder, path):
+        self.conv(dec.reduce, path + ("Conv1x1_0", "Conv_0"))
+        blocks = [b for pair in zip(dec.ups, dec.merges) for b in pair] + [dec.last]
+        for j, block in enumerate(blocks):
+            self.conv_block(block, j, path)
+        self.conv(dec.head.conv, path + ("Conv3x3_0", "Conv_0"))
+
     def dense(self, m: Dense, path):
         kernel = self._pop(self.params, path + ("kernel",))
         self._write(m.weight, kernel.T, path + ("kernel",))
         self._write(m.bias, self._pop(self.params, path + ("bias",)), path + ("bias",))
 
     def module(self, m: nn.Module, path=()):
-        if isinstance(m, (TripleDNet, Autoencoder, RotNet)):
+        if isinstance(m, (TripleDNet, Autoencoder, RotNet, SegmentationNet)):
             for name, child in m.named_children():
                 self.module(child, path + (name,))
         elif isinstance(m, (DepthEncoder, PoseEncoder, Extractor)):
@@ -139,6 +150,8 @@ class _Loader:
             self.depth_decoder(m, path)
         elif isinstance(m, (ImageDecoder, ColorDecoder)):
             self.trunk_decoder(m, path)
+        elif isinstance(m, SegDecoder):
+            self.seg_decoder(m, path)
         elif isinstance(m, Dense):
             self.dense(m, path)
         elif isinstance(m, DistillHead):
