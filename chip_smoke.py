@@ -121,6 +121,25 @@ Phases, each printed as one JSON line with its wall time:
            `cli.eval_segmentation` on the epoch-1 checkpoint, which must give
            the hook's mIoU and accuracy; ms/step, the host's wait, and one
            batch's train transforms on one thread
+  reference_variants  (after reference_segmentation) each architecture
+           option of the variants rows cut small (R18, HRNet-18 for DIFFNet,
+           64x160, the pose net at 32x96, batch 2, dropout off), on the card
+           against the CPU in float32, bounded as reference_distill
+  variants  (after segmentation) a line per architecture option at full
+           width, float32, batch 12, from random weights: HR-Depth and
+           DIFFNet on the port's cfg_kitti_fm_joint.py (R18 / HRNet-18,
+           R18 extractor, 192x640), and on cfg_kitti_fm_joint_inpaint_
+           disentangle.py (R50, 192x640, 16 erased squares) the depth skips
+           ca, pa, asca and 1x1 (with the 1x1 split), the 1x1 colour skips
+           on stages 1 and 3, pose from prediction and the pixel-shuffle
+           decoder: 1 warm-up step, 3 timed steps, ms/step, images/s, peak
+           memory, the photometric launches per step, the eval forward of
+           one image; the profile of 3 more steps for the two HR rows
+  train_cli_diffnet  (after train_cli_map) the train CLI on the DIFFNet
+           row's config for 1 epoch with its eval hook on the 98-frame
+           tree, then `cli.infer_singleimage --limit 4` on its checkpoint,
+           and the checkpoint restored, whose prediction must equal the
+           trained model's
   probe    `python -m tripled_tpu_torch.dev.element_probe`'s main() on the card
 Then the kernel summary line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Any failure raises and exits
@@ -1248,21 +1267,27 @@ def motion_masks_alone(config_name, seed):
     return 1e3 * (time.perf_counter() - t0)
 
 
-def train_cli_preset_path(photometric, dev, tree, tmp, config_name, term, described):
+def train_cli_preset_path(photometric, dev, tree, tmp, config_name, term, described,
+                          model_kw=None, keep_state=False):
     """The train CLI on the port's copy of `config_name` for 1 epoch with
     its eval hook, on `tree`: only the data paths, the split, epochs, work
-    dir and log interval replaced; `term` must be logged at every step.
-    The photometric launch counts are set to 0 before the run and read
-    after it."""
+    dir and log interval replaced, and the model fields `model_kw`; `term`
+    must be logged at every step. The photometric launch counts are set to
+    0 before the run and read after it. Also returns the run's config file
+    and work dir, and with `keep_state` its final state."""
     from tripled_tpu_torch.cli import train
     from tripled_tpu_torch.config import load_config
     from tripled_tpu_torch.eval.depth_metrics import METRIC_NAMES
 
+    model_kw = model_kw or {}
     base = os.path.join(CONFIG_DIR, config_name)
-    label = os.path.splitext(config_name)[0]
+    label = os.path.splitext(config_name)[0] + "".join(f"_{k}" for k in model_kw)
     work = os.path.join(tmp, f"work_{label}")
-    config = write_cli_config(os.path.join(tmp, f"{label}.py"), tree, 1, work, base=base)
+    config = write_cli_config(os.path.join(tmp, f"{label}.py"), tree, 1, work, base=base,
+                              model="".join(f", {k}={v!r}" for k, v in model_kw.items()))
     cfg, reference = load_config(config), load_config(base)
+    reference = dataclasses.replace(reference, model=dataclasses.replace(reference.model,
+                                                                         **model_kw))
     if (cfg.model, cfg.data.name, cfg.data.batch_size, cfg.data.erase_count,
             cfg.data.erase_shape) != (reference.model, reference.data.name,
                                       reference.data.batch_size, reference.data.erase_count,
@@ -1279,6 +1304,7 @@ def train_cli_preset_path(photometric, dev, tree, tmp, config_name, term, descri
     launches, by_dtype = dict(photometric.launches), dict(photometric.launches_by_dtype)
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     count = state.optimizer.count
+    run = {"config": config, "work": work, "state": state if keep_state else None}
     del state
     torch.cuda.empty_cache()
     with open(os.path.join(work, "metrics.jsonl")) as f:
@@ -1316,7 +1342,8 @@ def train_cli_preset_path(photometric, dev, tree, tmp, config_name, term, descri
                                   if k.startswith("train/")},
             "eval_hook": {k: history[0][k] for k in METRIC_NAMES},
             "eval_images_per_s": [r["val/eval_fps"] for r in rows if "val/eval_fps" in r],
-            "peak_memory_gib": peak_gib, "launches": launches, "launches_by_dtype": by_dtype}
+            "peak_memory_gib": peak_gib, "launches": launches,
+            "launches_by_dtype": by_dtype}, run
 
 
 # each pretext preset: the port's copy of the config that names it, and the
@@ -1394,6 +1421,143 @@ def pretext_phases(photometric, dev, seed, card):
         del state, step, batch, gen
         torch.cuda.empty_cache()
     return launches
+
+
+# the architecture options: per row the port's copy of a shipped config and
+# the model fields set on it. HR-Depth's and DIFFNet's published settings
+# are ResNet-18 (HRNet-18 for DIFFNet's encoder) at 640x192; the skip
+# options are the disentangle preset's own (R50, 192x640, 16 erased squares)
+JOINT = "cfg_kitti_fm_joint.py"
+DISENTANGLE = "cfg_kitti_fm_joint_inpaint_disentangle.py"
+VARIANTS = {
+    "hr_depth": (JOINT, {"use_hr_depth": True}),
+    "diffnet": (JOINT, {"use_diffnet": True}),
+    "skip_ca": (DISENTANGLE, {"depth_skip_type": "ca"}),
+    "skip_pa": (DISENTANGLE, {"depth_skip_type": "pa"}),
+    "skip_asca": (DISENTANGLE, {"depth_skip_type": "asca"}),
+    "skip_1x1": (DISENTANGLE, {"depth_skip_type": "1x1", "depth_disentangle_type": "1x1"}),
+    "color_skip_1x1": (DISENTANGLE, {"color_skip_type": "1x1",
+                                     "color_skip_layers": (False, True, False, True)}),
+    "pfp": (DISENTANGLE, {"use_pfp": True}),
+    "shuffle": (DISENTANGLE, {"depth_use_shuffle": True}),
+}
+PROFILED_VARIANTS = ("hr_depth", "diffnet")
+
+
+def variant_config(name):
+    from tripled_tpu_torch.config import load_config
+
+    config, fields = VARIANTS[name]
+    cfg = load_config(os.path.join(CONFIG_DIR, config))
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **fields))
+
+
+def reference_variants(dev, seed):
+    """Each variant row's config cut to a small step (R18 everywhere, HRNet-18
+    for DIFFNet, 64x160, the pose net at 32x96, batch 2, 4 erased 8x8
+    squares where the config erases, dropout off), on the card against
+    the CPU in float32, each metric's bound widened by the card's own
+    spread."""
+    out = {}
+    for name in VARIANTS:
+        cfg = variant_config(name)
+        model = dataclasses.replace(
+            cfg.model, height=64, width=160, pose_height=32, pose_width=96,
+            depth_num_layers=18, pose_num_layers=18, extractor_num_layers=18,
+            depth_dropout_rate=0.0)
+        out[name] = reference_step(dev, seed, model, 2, 64, 160, spread=True,
+                                   erase_count=4 if cfg.data.erase_count else 0,
+                                   erase_shape=(8, 8))
+    return out
+
+
+def variants_phases(photometric, dev, seed, card):
+    """Phase variants, a line per architecture option at full width from
+    random weights, float32: 1 warm-up step, STEPS timed steps (ms/step,
+    images/s, peak memory, the photometric launches), the eval forward of
+    one image; for the HR rows the profile of STEPS more steps. Each model
+    is freed before the next. Returns the photometric launches by path."""
+    from tripled_tpu_torch.train.step import make_predict_fn
+
+    launches = {}
+    for name, (config, fields) in VARIANTS.items():
+        t0 = time.perf_counter()
+        cfg = variant_config(name)
+        m = cfg.model
+        state, step, batch, gen, info = train_path(photometric, dev, seed, m, cfg.data,
+                                                   cfg.optim)
+        launches[f"variants {name}"] = info["launches"]
+        predict = make_predict_fn(state.model)
+        image = batch["color"][:1, :1]
+        disp = predict(image)
+        eval_ms = cuda_ms(lambda: predict(image), iters=10)
+        full = m.use_hr_depth or m.use_diffnet  # their scale 0 is the input's size
+        want = (1, m.height // (1 if full else 2), m.width // (1 if full else 2), 1)
+        if tuple(disp.shape) != want or not bool(torch.isfinite(disp).all()):
+            raise AssertionError(f"{name}: eval disparity {tuple(disp.shape)}, want {want}")
+        extra = {}
+        if name in PROFILED_VARIANTS:
+            profile = profile_step(step, batch, gen)
+            extra = {"device_busy_ms_per_step": profile["device_busy_ms_per_step"],
+                     "device_idle_share": profile["device_idle_share"], "profile": profile}
+        encoder = (f"HRNet-{m.depth_num_layers}" if m.use_diffnet
+                   else f"R{m.depth_num_layers}")
+        phase("variants", t0, row=name, config=f"tripled_tpu_torch/configs/{config}",
+              fields={k: v for k, v in fields.items()}, card=card,
+              shape={"height": m.height, "width": m.width, "batch": cfg.data.batch_size,
+                     "depth_encoder": encoder, "extractor": f"R{m.extractor_num_layers}",
+                     "erase_count": cfg.data.erase_count},
+              eval_ms_one_image=eval_ms, eval_disparity_shape=list(disp.shape),
+              photometric_launches_per_step={k: v / STEPS for k, v in info["launches"].items()},
+              **extra, **info)
+        del state, step, batch, gen, predict, disp
+        torch.cuda.empty_cache()
+    return launches
+
+
+def train_cli_diffnet_path(photometric, dev, tree, tmp):
+    """The train CLI on the DIFFNet row's config (the port's
+    cfg_kitti_fm_joint.py with use_diffnet) for 1 epoch with its eval hook
+    on `tree`; then `cli.infer_singleimage --limit 4` on its checkpoint,
+    and the checkpoint restored by the inference CLIs' loader, whose
+    prediction must equal the trained model's."""
+    import numpy as np
+    from PIL import Image
+
+    from tripled_tpu_torch.cli import infer, infer_singleimage
+    from tripled_tpu_torch.train.step import make_predict_fn
+
+    config, fields = VARIANTS["diffnet"]
+    out, run = train_cli_preset_path(
+        photometric, dev, tree, tmp, config, "min_reconstruct_loss/0",
+        "DIFFNet: HRNet-18 and its attention decoder, R18 pose and extractor, 192x640 "
+        "batch 12 f32", model_kw=fields, keep_state=True)
+    ckpt = os.path.join(run["work"], "ckpt", "epoch_1")
+    single = os.path.join(tmp, "diffnet_single")
+    with env_vars(TRIPLED_SPLITS_DIR=tree["splits_dir"]):
+        t0 = time.perf_counter()
+        n = infer_singleimage.main(["--config", run["config"], "--checkpoint", ckpt, "--limit",
+                                    "4", "--out_dir", single, "--device", str(dev)])
+        infer_s = time.perf_counter() - t0
+    cfg, _, restored = infer.load_depth_model(run["config"], ckpt, dev)
+    x = torch.rand(1, 1, cfg.model.height, cfg.model.width, 3, device=dev,
+                   generator=torch.Generator(dev).manual_seed(0))
+    trained = make_predict_fn(run["state"].model)(x)
+    again = restored(x)
+    files = sorted(os.listdir(single))
+    disp_png = np.asarray(Image.open(os.path.join(single, "00000_disp.png")))
+    if (n != 4 or files != sorted(f"{i:05d}_{k}.png" for i in range(4) for k in ("disp", "img"))
+            or disp_png.shape[:2] != (cfg.model.height, cfg.model.width)
+            or not torch.equal(trained, again)):
+        raise AssertionError(f"infer_singleimage on the DIFFNet checkpoint: {n} maps, {files}, "
+                             f"{disp_png.shape}, restored prediction equal: "
+                             f"{torch.equal(trained, again)}")
+    del run, restored, trained, again
+    torch.cuda.empty_cache()
+    out["infer_singleimage"] = {"maps": n, "files": len(files), "disp_png": list(disp_png.shape),
+                                "seconds": infer_s,
+                                "restored_prediction_equals_trained": True}
+    return out
 
 
 # segmentation: the port's copy of the shipped config, whose model config
@@ -1748,6 +1912,10 @@ def main():
     phase("reference_segmentation", t0, tolerance=REFERENCE_TOL["float32"]["loss"],
           bound="3 x the card's run-to-run spread + tolerance x |cpu| (log_probs: x max|cpu|)",
           models=reference_segmentation(dev, args.seed))
+    t0 = time.perf_counter()
+    phase("reference_variants", t0, tolerance=REFERENCE_TOL["float32"],
+          bound="3 x the card's run-to-run spread + tolerance x |cpu|",
+          rows=reference_variants(dev, args.seed))
 
     t0 = time.perf_counter()
     model_cfg, data_cfg, optim_cfg = mono_fm_bench()
@@ -1775,7 +1943,8 @@ def main():
     launches_by_path = {"train": train_launches, **launches_by_path,
                         **distill_phases(photometric, dev, args.seed, card),
                         **pretext_phases(photometric, dev, args.seed, card),
-                        **segmentation_phases(photometric, dev, args.seed, card)}
+                        **segmentation_phases(photometric, dev, args.seed, card),
+                        **variants_phases(photometric, dev, args.seed, card)}
 
     with tempfile.TemporaryDirectory(prefix="train_cli_") as tmp:
         t0 = time.perf_counter()
@@ -1811,13 +1980,13 @@ def main():
               tree={"frames": tree["num_frames"], "height": tree["height"],
                     "width": tree["width"]}, **fast)
         t0 = time.perf_counter()
-        distill_cli = train_cli_preset_path(
+        distill_cli, _ = train_cli_preset_path(
             photometric, dev, tree, tmp, *DISTILL[DISTILL_CLI],
             "R50/R18/R50 192x640 batch 12 f32, kitti_inpaint's 16 erased 16x16 squares")
         launches_by_path["train_cli_distill"] = distill_cli["launches"]
         phase("train_cli_distill", t0, card=card, preset=DISTILL_CLI, **distill_cli)
         t0 = time.perf_counter()
-        map_cli = train_cli_preset_path(
+        map_cli, _ = train_cli_preset_path(
             photometric, dev, tree, tmp, *PRETEXT[MAP_CLI],
             "R18/R18 192x640 batch 12 f32, kitti_map: motion masks, map params over the "
             "alphas (0.1, 0.4, 0.7, 1.0), 16 erased 16x16 squares")
@@ -1825,6 +1994,10 @@ def main():
         map_cli["motion_mask_ms_per_batch_one_thread"] = motion_masks_alone(
             PRETEXT[MAP_CLI][0], args.seed)
         phase("train_cli_map", t0, card=card, preset=MAP_CLI, **map_cli)
+        t0 = time.perf_counter()
+        diffnet_cli = train_cli_diffnet_path(photometric, dev, tree, tmp)
+        launches_by_path["train_cli_diffnet"] = diffnet_cli["launches"]
+        phase("train_cli_diffnet", t0, card=card, **diffnet_cli)
 
     with tempfile.TemporaryDirectory(prefix="train_cli_segmentation_") as tmp:
         t0 = time.perf_counter()

@@ -586,3 +586,81 @@ def test_predict_labels_on_the_card_match_the_cpu(cuda_device):
         want = predict_labels(lp, *size)
         # bilinear weights in float32 on both: a near-tie may flip
         assert (got != want).float().mean().item() <= 1e-4, size
+
+
+# the architecture options' layers on the card against the CPU, float32 with
+# TF32 off: outputs within 1e-5 of their largest magnitude, each gradient
+# (every input's and parameter's, of sum(output * fixed weights)) within
+# 1e-4 of its norm. HRNet-18 (64x96, batch 2) in eval mode: in train mode
+# its BatchNorms over few values (2x3 pixels on the 8w branch) leave float32
+# gradients ill-conditioned, up to 1.6e-2 of a tensor's norm from float64
+# on the CPU alone (seen on the card against the CPU: 8.4e-3); in eval
+# mode 3.2e-6 from float64. Its train step on the card is held against the
+# CPU's by chip_smoke.py's reference_variants.
+VARIANT_LAYER_TOL = 1e-5, 1e-4
+
+
+def _variant_layers():
+    from tripled_tpu_torch.models import layers as tl
+    from tripled_tpu_torch.models.hrnet import HRNetFeatures
+
+    def feat(c=32, h=12, w=20):
+        return torch.randn(2, c, h, w)
+
+    return {
+        "up_shuffle": (lambda: tl.UpShuffle(32, 16), lambda: [feat()]),
+        "resize_align_corners": (lambda: _Resize(), lambda: [feat(8, 6, 10)]),
+        "ca": (lambda: tl.CALayer(32), lambda: [feat()]),
+        "pa": (lambda: tl.CALayer(32, pix_att=True), lambda: [feat()]),
+        "asca": (lambda: tl.AdaptivelyScaledCALayer(32), lambda: [feat()]),
+        "fse_module": (lambda: tl.FSEModule(16 + 64, 16),
+                       lambda: [feat(16, 6, 10), [feat(), feat()]]),
+        "attention_module": (lambda: tl.AttentionModule(16 + 64, 16),
+                             lambda: [feat(16, 6, 10), [feat(), feat()]]),
+        "hrnet18": (lambda: HRNetFeatures(18).eval(), lambda: [torch.rand(2, 3, 64, 96)]),
+    }
+
+
+class _Resize(torch.nn.Module):
+    def forward(self, x):
+        from tripled_tpu_torch.ops.image import resize_bilinear_align_corners
+
+        return resize_bilinear_align_corners(x, 23, 37)
+
+
+def _leaves(x):
+    return [t for item in x for t in _leaves(item)] if isinstance(x, (list, tuple)) else [x]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["up_shuffle", "resize_align_corners", "ca", "pa", "asca",
+                                  "fse_module", "attention_module", "hrnet18"])
+def test_variant_layer_on_the_card_matches_the_cpu(name, cuda_device):
+    import copy
+
+    build, make_inputs = _variant_layers()[name]
+    out_tol, grad_tol = VARIANT_LAYER_TOL
+    torch.manual_seed(0)
+    cpu = build()
+    card = copy.deepcopy(cpu).to(cuda_device)
+    inputs = make_inputs()
+    runs = []
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for module, device in ((cpu, "cpu"), (card, cuda_device)):
+            args = [[t.detach().to(device).requires_grad_() for t in a] if isinstance(a, list)
+                    else a.detach().to(device).requires_grad_() for a in inputs]
+            outs = _leaves(module(*args))
+            gen = torch.Generator().manual_seed(1)
+            sum((o * torch.randn(o.shape, generator=gen).to(device)).sum() for o in outs).backward()
+            runs.append(([o.detach().cpu() for o in outs],
+                         [t.grad.cpu() for t in _leaves(args)],
+                         [p.grad.cpu() for p in module.parameters()]))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    (outs_cpu, gin_cpu, gp_cpu), (outs_card, gin_card, gp_card) = runs
+    for a, b in zip(outs_card, outs_cpu):
+        assert (a - b).abs().max().item() <= out_tol * b.abs().max().item(), name
+    for a, b in zip(gin_card + gp_card, gin_cpu + gp_cpu):
+        assert (a - b).norm().item() <= grad_tol * b.norm().item(), name

@@ -226,8 +226,17 @@ def test_flagship_bench_is_the_flagship_config():
     assert optim.lr_steps == exp.optim.lr_steps
 
 
-@pytest.mark.parametrize("field,value", [("depth_skip_type", "ca"), ("color_skip_type", "1x1"),
-                                         ("use_pfp", True), ("depth_disentangle_type", "1x1")])
-def test_config_rejects_unported_branches(field, value):
-    with pytest.raises(ValueError, match="later slice"):
-        ModelConfig(**{field: value})
+@pytest.mark.parametrize("field,value", [("depth_skip_type", "ca"), ("depth_skip_type", "pa"),
+                                         ("depth_skip_type", "asca"), ("depth_skip_type", "1x1"),
+                                         ("color_skip_type", "1x1"), ("use_pfp", True),
+                                         ("depth_disentangle_type", "1x1"),
+                                         ("use_hr_depth", True), ("use_diffnet", True),
+                                         ("depth_use_shuffle", True)])
+def test_config_accepts_architecture_options(field, value):
+    """Each architecture option is a field of the JAX ModelConfig's, with its
+    default, and the port's config takes the value as the JAX one does."""
+    port_default = {f.name: f.default for f in dataclasses.fields(ModelConfig)}
+    jax_default = {f.name: f.default for f in dataclasses.fields(jcfg.ModelConfig)}
+    assert port_default[field] == jax_default[field]
+    assert getattr(ModelConfig(**{field: value}), field) == getattr(
+        jcfg.ModelConfig(**{field: value}), field) == value

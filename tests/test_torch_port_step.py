@@ -164,7 +164,10 @@ def run_both(kwargs, dtype=np.float32, inputs=None):
     (adam,) = [s for s in jax.tree_util.tree_leaves(
         new_state.opt_state, is_leaf=lambda s: hasattr(s, "mu")) if hasattr(s, "mu")]
     jgrads = _port_model(kwargs, tdtype,
-                         jax.tree_util.tree_map(lambda m: m / 0.1 * unclip, adam.mu), stats,
+                         # in numpy: the same float operations, without a
+                         # JAX compile for each tensor shape
+                         jax.tree_util.tree_map(lambda m: np.asarray(m) / 0.1 * unclip,
+                                                adam.mu), stats,
                          template)
     del step, state, new_state, adam, params, stats
     release_jax_memory()

@@ -1,16 +1,16 @@
 """Frozen configuration dataclasses (`tripled_tpu/config.py`): the fields
 of the JAX package's `ModelConfig` that the training steps of all 16 MONO
 presets read (the map-pose, equivariant and rotation-pretext fields
-included), and every field of `DataConfig`, `OptimConfig` and
-`ExperimentConfig`, with the same defaults. A model field whose other
-values belong to branches not ported yet (attention or 1x1 skips,
-`use_pfp`) takes only its default, and the pretext presets
-(`presets.PRETEXT_PRESETS`) take only float32. Not here yet: the decoder
-variants (`use_hr_depth`, `use_diffnet`, `depth_use_shuffle`) and the warp
-and kernel options (`warp_align_corners`, `warp_gather_dtype`,
-`warp_block_gather`, `warp_block_shape`, `warp_block_features`,
-`use_pallas_photometric`, `pool_eqmask_grad`). Experiment configs are python files defining
-`config` (`tripled_tpu_torch/configs/`), read with `load_config`."""
+included), with every architecture option (the attention and 1x1
+disentangle skips, the 1x1 colour skips, `use_pfp`, the pixel-shuffle
+depth decoder, HR-Depth and DIFFNet), and every field of `DataConfig`,
+`OptimConfig` and `ExperimentConfig`, with the same defaults. The pretext
+presets (`presets.PRETEXT_PRESETS`) and the architecture options take only
+float32. Not here yet: the warp and kernel options (`warp_align_corners`,
+`warp_gather_dtype`, `warp_block_gather`, `warp_block_shape`,
+`warp_block_features`, `use_pallas_photometric`, `pool_eqmask_grad`).
+Experiment configs are python files defining `config`
+(`tripled_tpu_torch/configs/`), read with `load_config`."""
 
 from __future__ import annotations
 
@@ -19,6 +19,10 @@ import importlib.util
 import os
 import pprint
 import sys
+
+
+_ARCHITECTURE_OPTIONS = ("depth_skip_type", "depth_disentangle_type", "color_skip_type",
+                         "use_pfp", "use_hr_depth", "use_diffnet", "depth_use_shuffle")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,13 +58,22 @@ class ModelConfig:
     # disentangle (TripleD): per encoder stage, whether its channels are
     # split between the depth branch (left half) and the colour branch
     disentangle_layers: tuple = (False, False, False, False, False)
-    depth_skip_type: str | None = None         # only None is ported
-    depth_disentangle_type: str = "use_half"   # only "use_half" is ported
-    color_skip_type: str | None = None         # only None is ported
+    # each depth skip: channel ("ca"), pixel ("pa") or adaptively scaled
+    # ("asca") attention, or "1x1": an undivided last stage gets a 1x1
+    # conv, BatchNorm and ELU
+    depth_skip_type: str | None = None
+    # how a disentangled stage gives the depth decoder half its channels:
+    # the left half ("use_half") or a 1x1 conv, BatchNorm and ELU ("1x1")
+    depth_disentangle_type: str = "use_half"
+    # "1x1": the colour decoder sees whole stages, those of
+    # color_skip_layers through a 1x1 conv to half their channels
+    color_skip_type: str | None = None
     color_skip_layers: tuple = (False, False, False, False)
     skip_connection_multiplier: float = 1.0
     auto_res_weight: float = 0.0
-    use_pfp: bool = False                      # only False is ported
+    # pose from prediction: the pose net sees the colour decoder's
+    # reconstruction of the target in place of the target frame
+    use_pfp: bool = False
 
     # distillation heads: depth to grayscale (d2g) and depth + L to ab
     d2g_weight: float = 0.0
@@ -97,6 +110,12 @@ class ModelConfig:
     pretext_label_size: int = 4
     pretext_weight: float = 1.0
 
+    # depth networks: HR-Depth's nested decoder; DIFFNet, an HRNet encoder
+    # of width depth_num_layers on the raw image with its attention
+    # decoder; the CRP decoder upsampling by pixel shuffle
+    use_hr_depth: bool = False
+    use_diffnet: bool = False
+    depth_use_shuffle: bool = False
     # dropout on the two deepest skips of the CRP DepthDecoder; 0.0 for
     # deterministic parity runs
     depth_dropout_rate: float = 0.5
@@ -115,18 +134,17 @@ class ModelConfig:
             raise ValueError(f"compute_dtype must be 'float32' or 'bfloat16', "
                              f"got {self.compute_dtype!r}")
         later = "a later slice of the port"
-        if self.depth_skip_type is not None:
-            raise ValueError(f"depth_skip_type={self.depth_skip_type!r} waits for {later}")
-        if self.color_skip_type is not None:
-            raise ValueError(f"color_skip_type={self.color_skip_type!r} waits for {later}")
-        if self.use_pfp:
-            raise ValueError(f"use_pfp=True waits for {later}")
-        if self.depth_disentangle_type != "use_half":
-            raise ValueError(f"depth_disentangle_type={self.depth_disentangle_type!r} "
-                             f"waits for {later}")
         from tripled_tpu_torch.presets import PRETEXT_PRESETS  # presets imports this module
         if self.compute_dtype == "bfloat16" and self.name in PRETEXT_PRESETS:
             raise ValueError(f"compute_dtype='bfloat16' for {self.name!r} waits for {later}")
+        if self.compute_dtype == "bfloat16" and self.architecture_options():
+            raise ValueError(f"compute_dtype='bfloat16' with {self.architecture_options()} "
+                             f"waits for {later}")
+
+    def architecture_options(self) -> list[str]:
+        """The architecture options this config sets off their defaults."""
+        return [f.name for f in dataclasses.fields(self)
+                if f.name in _ARCHITECTURE_OPTIONS and getattr(self, f.name) != f.default]
 
     @property
     def num_frames(self) -> int:

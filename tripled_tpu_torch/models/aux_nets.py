@@ -20,7 +20,6 @@ over the batch before the cross entropy.
 
 from __future__ import annotations
 
-import math
 from typing import Dict
 
 import torch
@@ -29,7 +28,7 @@ import torch.nn as nn
 from tripled_tpu_torch.config import ModelConfig
 from tripled_tpu_torch.models.decoders import ImageDecoder
 from tripled_tpu_torch.models.encoders import Extractor
-from tripled_tpu_torch.models.resnet import _TRUNC_STD
+from tripled_tpu_torch.models.layers import flax_init_
 from tripled_tpu_torch.ops.image import resize_bilinear
 from tripled_tpu_torch.ops.losses import erased_mean, feature_regularization_loss, reprojection_loss
 
@@ -70,9 +69,7 @@ class Dense(nn.Linear):
 
     def __init__(self, in_features: int, out_features: int):
         super().__init__(in_features, out_features)
-        std = math.sqrt(1.0 / in_features) / _TRUNC_STD
-        nn.init.trunc_normal_(self.weight, std=std, a=-2 * std, b=2 * std)
-        nn.init.zeros_(self.bias)
+        flax_init_(self)
 
 
 def _nchw(x):

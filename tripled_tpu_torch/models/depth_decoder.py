@@ -1,8 +1,9 @@
 """CRP depth decoder (`tripled_tpu/models/depth_decoder.py`), NCHW.
 
 Per level: 1x1 reduce, 3x3 iconv over cat(reduce, up(prev), prev_disp),
-leaky ReLU, CRP x4, 3x3 merge, leaky ReLU, 2x nearest upsample, sigmoid
-disparity head. Dropout on the two deepest encoder stages in training.
+leaky ReLU, CRP x4, 3x3 merge, leaky ReLU, 2x nearest upsample (or with
+`use_shuffle` a pixel shuffle, `layers.UpShuffle`), sigmoid disparity
+head. Dropout on the two deepest encoder stages in training.
 Returns disparities [scale0, scale1, scale2, scale3] at 1/2 .. 1/16 of the
 input resolution, each (B, 1, h, w). With `remat`, the levels' activations
 are recomputed in the backward; the dropout masks are drawn before, once."""
@@ -15,7 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tripled_tpu_torch.models.layers import CRPBlock, Conv1x1, Conv3x3, remat
+from tripled_tpu_torch.models.layers import CRPBlock, Conv1x1, Conv3x3, UpShuffle, remat
 from tripled_tpu_torch.ops.image import upsample2x_nearest
 
 
@@ -43,20 +44,20 @@ class _Level(nn.Module):
         self.merge = Conv3x3(bottleneck, bottleneck)
         self.disp = Conv3x3(bottleneck, 1)
 
-    def forward(self, feat, prev=None, prev_disp=None):
+    def forward(self, up, feat, prev=None, prev_disp=None):
         x = self.reduce(feat)
         if prev is not None:
             x = torch.cat([x, prev, prev_disp], dim=1)
         x = leaky_relu(self.iconv(x))
         x = self.crp(x)
         x = leaky_relu(self.merge(x))
-        x = upsample2x_nearest(x)
+        x = up(x)
         return x, torch.sigmoid(self.disp(x))
 
 
 class DepthDecoder(nn.Module):
     def __init__(self, num_ch_enc: Sequence[int], bottleneck: int = 256,
-                 dropout_rate: float = 0.5, remat: bool = False):
+                 dropout_rate: float = 0.5, remat: bool = False, use_shuffle: bool = False):
         super().__init__()
         self.dropout_rate = dropout_rate
         self.remat = remat
@@ -68,6 +69,14 @@ class DepthDecoder(nn.Module):
             _Level(num_ch_enc[2], bn, 2 * bn + 1, bn),
             _Level(num_ch_enc[1], bn, 2 * bn + 1, bn),
         ])
+        ups = [upsample2x_nearest] * 4
+        if use_shuffle:
+            # three shuffles, the third shared by levels 2 and 1: the JAX
+            # package keeps the reference's reuse of its level-2 shuffle
+            # (`tripled_tpu/models/depth_decoder.py:41-49`)
+            self.shuffles = nn.ModuleList(UpShuffle(bn, bn) for _ in range(3))
+            ups = [self.shuffles[0], self.shuffles[1], self.shuffles[2], self.shuffles[2]]
+        self._ups = ups
 
     def forward(self, features, generator: torch.Generator | None = None):
         _, l1, l2, l3, l4 = features
@@ -78,9 +87,9 @@ class DepthDecoder(nn.Module):
         return remat(self._decode, l1, l2, l3, l4, enabled=self.remat)
 
     def _decode(self, l1, l2, l3, l4):
-        x, disp = self.levels[0](l4)
+        x, disp = self.levels[0](self._ups[0], l4)
         disps = [disp]
-        for level, feat in zip(self.levels[1:], (l3, l2, l1)):
-            x, disp = level(feat, x, disp)
+        for level, up, feat in zip(self.levels[1:], self._ups[1:], (l3, l2, l1)):
+            x, disp = level(up, feat, x, disp)
             disps.append(disp)
         return disps[::-1]

@@ -3,7 +3,11 @@ activation recomputation (`remat`) the encoders and decoders use.
 
 Convolutions outside the ResNets keep PyTorch's default Conv2d init,
 U(+-1/sqrt(fan_in)) for kernel and bias, which is what the JAX package's
-`torch_conv_kernel` / `torch_conv_bias` reproduce.
+`torch_conv_kernel` / `torch_conv_bias` reproduce, where the JAX module
+asks for them (`Conv1x1`, `Conv3x3`). The attention blocks' plain
+`nn.Conv` and `nn.Dense` take flax's default instead, lecun-normal
+truncated at two standard deviations and a zero bias (`flax_init_`), and
+`UpShuffle` its sub-pixel init: each module's docstring says which.
 
 Dtypes follow flax's promotion: a convolution computes in the wider of
 its input's and its parameters' dtypes, so bf16-rounded parameters meeting
@@ -14,6 +18,7 @@ unrounded, on every device (`conv_bn`)."""
 
 from __future__ import annotations
 
+import math
 import threading
 from contextlib import contextmanager, nullcontext
 
@@ -22,7 +27,23 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from tripled_tpu_torch.ops.image import upsample2x_nearest
+
 _state = threading.local()
+
+# std of a unit normal truncated to [-2, 2]
+_TRUNC_STD = 0.87962566103423978
+
+
+def flax_init_(module: nn.Module) -> nn.Module:
+    """flax's default init for a Conv2d or Linear: lecun-normal (fan-in
+    variance), truncated at two standard deviations, and a zero bias."""
+    fan_in = module.weight[0].numel()
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    nn.init.trunc_normal_(module.weight, std=std, a=-2 * std, b=2 * std)
+    if module.bias is not None:
+        nn.init.zeros_(module.bias)
+    return module
 
 
 @contextmanager
@@ -214,3 +235,145 @@ def identity_partial(x: torch.Tensor, part_ratio: int = 2, use_right: bool = Fal
     the first C // part_ratio channels, or with `use_right` the rest."""
     c = x.shape[1] // part_ratio
     return x[:, c:] if use_right else x[:, :c]
+
+
+def flax_conv(cin: int, cout: int, k: int = 1, padding: int = 0) -> Conv2d:
+    """A zero-padded k x k convolution with bias, flax's default init."""
+    return flax_init_(Conv2d(cin, cout, k, padding=padding))
+
+
+def flax_linear(cin: int, cout: int) -> nn.Linear:
+    """flax's `nn.Dense(use_bias=False)`: its (in, out) kernel is this
+    weight transposed."""
+    return flax_init_(nn.Linear(cin, cout, bias=False))
+
+
+class SqueezeAndExcitationBlock(nn.Module):
+    """1x1 conv to channels // reduction, ReLU, 1x1 conv back; flax's
+    default init."""
+
+    def __init__(self, channels: int, reduction: int = 16):
+        super().__init__()
+        self.conv1 = flax_conv(channels, channels // reduction)
+        self.conv2 = flax_conv(channels // reduction, channels)
+
+    def forward(self, x):
+        return self.conv2(F.relu(self.conv1(x)))
+
+
+def channel_descriptor(x: torch.Tensor):
+    """Per-channel spatial (std, mean), each (B, C, 1, 1) (`ChannelDescriptor`)."""
+    mean = x.mean(dim=(2, 3), keepdim=True)
+    var = ((x - mean) ** 2).mean(dim=(2, 3), keepdim=True)
+    return var.sqrt(), mean
+
+
+class AdaptivelyScaledCALayer(nn.Module):
+    """ASCA: squeeze-excitation of the channels' std and of their mean,
+    fused by a 1x1 conv, ReLU and a third squeeze-excitation, gating x
+    through a sigmoid. flax's default init."""
+
+    def __init__(self, channels: int, reduction: int = 16):
+        super().__init__()
+        self.se_std = SqueezeAndExcitationBlock(channels, reduction)
+        self.se_mean = SqueezeAndExcitationBlock(channels, reduction)
+        self.fuse = flax_conv(2 * channels, channels)
+        self.se_fused = SqueezeAndExcitationBlock(channels, reduction)
+
+    def forward(self, x):
+        std, mean = channel_descriptor(x)
+        fused = torch.cat([self.se_std(std), self.se_mean(mean)], dim=1)
+        fused = self.se_fused(F.relu(self.fuse(fused)))
+        return x * torch.sigmoid(fused)
+
+
+class CALayer(nn.Module):
+    """Channel attention on the spatial mean; with `pix_att`, pixel
+    attention on x itself; with `contrast_aware`, on -mean / std + std.
+    flax's default init."""
+
+    def __init__(self, channels: int, reduction: int = 16, contrast_aware: bool = False,
+                 pix_att: bool = False):
+        super().__init__()
+        self.contrast_aware, self.pix_att = contrast_aware, pix_att
+        self.conv1 = flax_conv(channels, channels // reduction)
+        self.conv2 = flax_conv(channels // reduction, channels)
+
+    def forward(self, x):
+        if self.contrast_aware:
+            std, mean = channel_descriptor(x)
+            y = -mean / std + std
+        elif not self.pix_att:
+            y = x.mean(dim=(2, 3), keepdim=True)
+        else:
+            y = x
+        return x * torch.sigmoid(self.conv2(F.relu(self.conv1(y))))
+
+
+class UpShuffle(nn.Module):
+    """Reflection-padded 3x3 conv to channels * r * r, pixel shuffle by r,
+    ELU. The shuffle's channel order is nn.PixelShuffle's (output channel c,
+    offset (i, j) reads input channel c * r * r + i * r + j), which the JAX
+    module reproduces in NHWC. Sub-pixel init: one kaiming-normal (fan-in,
+    not truncated) kernel for channels outputs, each repeated r * r times in
+    a row, so that the shuffle starts as a smooth upsample; the bias is
+    PyTorch's default."""
+
+    def __init__(self, in_channels: int, channels: int, upscale: int = 2):
+        super().__init__()
+        r = self.upscale = upscale
+        self.conv = Conv2d(in_channels, channels * r * r, 3)
+        sub = torch.empty(channels, in_channels, 3, 3)
+        nn.init.normal_(sub, std=math.sqrt(2.0 / (9 * in_channels)))
+        with torch.no_grad():
+            self.conv.weight.copy_(sub.repeat_interleave(r * r, dim=0))
+
+    def forward(self, x):
+        return F.elu(F.pixel_shuffle(self.conv(reflect_pad(x, 1)), self.upscale))
+
+
+def _upsample_concat(high, lows):
+    return torch.cat([upsample2x_nearest(high)] + list(lows), dim=1)
+
+
+class ChannelAttention(nn.Module):
+    """DIFFNet's channel attention: two bias-free linear layers on the
+    spatial mean, a sigmoid gate. flax's default init."""
+
+    def __init__(self, channels: int, ratio: int = 16):
+        super().__init__()
+        self.fc1 = flax_linear(channels, channels // ratio)
+        self.fc2 = flax_linear(channels // ratio, channels)
+
+    def forward(self, x):
+        y = torch.sigmoid(self.fc2(F.relu(self.fc1(x.mean(dim=(2, 3))))))
+        return y[:, :, None, None] * x
+
+
+class FSEModule(nn.Module):
+    """HR-Depth's feature squeeze-excitation: the 2x-upsampled `high` and
+    the `lows` concatenated (in_channels in all), gated per channel as
+    `ChannelAttention` gates (reduction 16), then a 1x1 conv with bias and
+    ReLU. flax's default init."""
+
+    def __init__(self, in_channels: int, out_channels: int, reduction: int = 16):
+        super().__init__()
+        self.attention = ChannelAttention(in_channels, reduction)
+        self.conv = flax_conv(in_channels, out_channels)
+
+    def forward(self, high, lows):
+        return F.relu(self.conv(self.attention(_upsample_concat(high, lows))))
+
+
+class AttentionModule(nn.Module):
+    """DIFFNet's decoder fusion: the 2x-upsampled `high` and the `lows`
+    concatenated (in_channels in all), channel attention, a zero-padded 3x3
+    conv with bias, ReLU. flax's default init."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.attention = ChannelAttention(in_channels)
+        self.conv = flax_conv(in_channels, out_channels, 3, padding=1)
+
+    def forward(self, high, lows):
+        return F.relu(self.conv(self.attention(_upsample_concat(high, lows))))

@@ -8,7 +8,11 @@ pretext (`im_rot`: the extractor on a rotated crop, `rot_head`, and the
 perceptual term on crops), map-pose (the pose net on motion-masked,
 alpha-mixed frames, and `pose_map_cls` classifying the alpha pair) and
 equivariant (the extractor's source features warped into the target
-decode each source frame outside its warped erase mask).
+decode each source frame outside its warped erase mask). And every
+architecture option: the attention (`ca`, `pa`, `asca`) and 1x1 depth
+skips, the 1x1 colour skips, pose from prediction (`use_pfp`), the
+pixel-shuffle CRP decoder, HR-Depth's decoder, and DIFFNet (an HRNet
+encoder on the raw image with its attention decoder).
 
 Inputs are a dict of stacked tensors in the JAX package's layout, frame axis
 F in `cfg.frame_ids` order (index 0 is the target frame):
@@ -40,11 +44,11 @@ step (`train/step.py`); eval-mode prediction keeps them float32.
 
 from __future__ import annotations
 
-import math
 from typing import Any, Dict
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from tripled_tpu_torch.config import ModelConfig
 from tripled_tpu_torch.models import aux_nets
@@ -52,9 +56,19 @@ from tripled_tpu_torch.models.aux_nets import Dense, crop, cross_entropy_with_ba
 from tripled_tpu_torch.models.decoders import ColorDecoder, ImageDecoder
 from tripled_tpu_torch.models.depth_decoder import DepthDecoder
 from tripled_tpu_torch.models.encoders import DepthEncoder, Extractor, PoseEncoder
-from tripled_tpu_torch.models.layers import Conv2d, identity_partial
+from tripled_tpu_torch.models.hr_decoders import DIFFDepthDecoder, HRDepthDecoder
+from tripled_tpu_torch.models.hrnet import HRNetFeatures
+from tripled_tpu_torch.models.layers import (
+    AdaptivelyScaledCALayer,
+    BatchNorm,
+    CALayer,
+    Conv1x1,
+    Conv2d,
+    flax_init_,
+    identity_partial,
+)
 from tripled_tpu_torch.models.pose_decoder import PoseDecoder
-from tripled_tpu_torch.models.resnet import _TRUNC_STD, BasicBlock
+from tripled_tpu_torch.models.resnet import BasicBlock
 from tripled_tpu_torch.ops.color import rgb2lab, rgb_to_gray, rgb_to_l
 from tripled_tpu_torch.ops.geometry import (
     disp_to_depth,
@@ -104,14 +118,50 @@ class DistillHead(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, use_residual: bool):
         super().__init__()
         self.block = BasicBlock(in_channels, 32, use_residual=use_residual)
-        self.conv = Conv2d(32, out_channels, 1)
-        std = math.sqrt(1.0 / 32) / _TRUNC_STD
-        nn.init.trunc_normal_(self.conv.weight, std=std, a=-2 * std, b=2 * std)
-        nn.init.zeros_(self.conv.bias)
+        self.conv = flax_init_(Conv2d(32, out_channels, 1))
 
     def forward(self, x):
         """NHWC in and out."""
         return _nhwc(self.conv(self.block(_nchw(x))))
+
+
+class SkipSplit(nn.Module):
+    """One skip layer between an encoder stage and a decoder
+    (`tripled_tpu/models/net.py:79-106`): optional attention ("ca", "pa",
+    "asca"), then the depth half of a disentangled stage (`split`: the left
+    channel half, "use_half", or "1x1", a 1x1 conv to half the channels,
+    BatchNorm and ELU), or with `full_1x1` the same 1x1 block at full
+    width. Without any of these it passes the stage as it is."""
+
+    def __init__(self, channels: int, attention: str | None = None, split: str | None = None,
+                 full_1x1: bool = False):
+        super().__init__()
+        self.split = split
+        self.attention = None
+        if attention in ("ca", "pa"):
+            self.attention = CALayer(channels, pix_att=attention == "pa")
+        elif attention == "asca":
+            self.attention = AdaptivelyScaledCALayer(channels)
+        if split == "1x1" or (split is None and full_1x1):
+            out = channels // 2 if split == "1x1" else channels
+            self.conv, self.bn = Conv1x1(channels, out), BatchNorm(out)
+
+    def forward(self, x):
+        if self.attention is not None:
+            x = self.attention(x)
+        if self.split == "use_half":
+            return identity_partial(x)
+        if hasattr(self, "conv"):
+            return F.elu(self.bn(self.conv(x)))
+        return x
+
+
+def _skip_list(owner: nn.Module, name: str, skips: list) -> list:
+    """`skips`, registered on `owner` as the ModuleList `name` only where one
+    of them holds variables: the JAX model has entries `name_i` only then."""
+    if any(True for skip in skips for _ in skip.parameters()):
+        setattr(owner, name, nn.ModuleList(skips))
+    return skips
 
 
 class TripleDNet(nn.Module):
@@ -119,13 +169,36 @@ class TripleDNet(nn.Module):
         super().__init__()
         cfg = canonicalize(cfg)
         self.cfg = cfg
-        self.depth_encoder = DepthEncoder(cfg.depth_num_layers, remat=cfg.remat)
-        enc_ch = self.depth_encoder.num_ch_enc
-        # a disentangled stage gives its left channel half to the depth
-        # decoder and its right half to the colour decoder
-        depth_ch = [ch // 2 if flag else ch for ch, flag in zip(enc_ch, cfg.disentangle_layers)]
-        self.depth_decoder = DepthDecoder(depth_ch, dropout_rate=cfg.depth_dropout_rate,
-                                          remat=cfg.remat)
+        disentangled = any(cfg.disentangle_layers)
+        if cfg.use_diffnet and disentangled:
+            # as the JAX package: its disentangle forward would index the
+            # five flat skips into HRNet's nested features
+            raise ValueError("use_diffnet cannot be combined with disentangle")
+        if cfg.use_diffnet:
+            # HRNet of width depth_num_layers on the raw image; no skips
+            self.depth_encoder = HRNetFeatures(cfg.depth_num_layers)
+            enc_ch = self.depth_encoder.num_ch_enc
+            self.depth_decoder = DIFFDepthDecoder(enc_ch)
+        else:
+            self.depth_encoder = DepthEncoder(cfg.depth_num_layers, remat=cfg.remat)
+            enc_ch = self.depth_encoder.num_ch_enc
+            # per stage: attention, then a disentangled stage's depth half;
+            # an undivided last stage takes the full 1x1 block under
+            # depth_skip_type="1x1"
+            att = cfg.depth_skip_type if cfg.depth_skip_type in ("ca", "pa", "asca") else None
+            last = len(cfg.disentangle_layers) - 1
+            self._depth_skips = _skip_list(self, "depth_skips", [
+                SkipSplit(ch, att, cfg.depth_disentangle_type) if flag else
+                SkipSplit(ch, att, full_1x1=cfg.depth_skip_type == "1x1" and i == last)
+                for i, (ch, flag) in enumerate(zip(enc_ch, cfg.disentangle_layers))])
+            depth_ch = [ch // 2 if flag else ch
+                        for ch, flag in zip(enc_ch, cfg.disentangle_layers)]
+            if cfg.use_hr_depth:
+                self.depth_decoder = HRDepthDecoder(depth_ch)
+            else:
+                self.depth_decoder = DepthDecoder(depth_ch, dropout_rate=cfg.depth_dropout_rate,
+                                                  remat=cfg.remat,
+                                                  use_shuffle=cfg.depth_use_shuffle)
         self.pose_encoder = PoseEncoder(cfg.pose_num_layers, 2, remat=cfg.remat)
         self.pose_decoder = PoseDecoder(self.pose_encoder.num_ch_enc[-1])
         if cfg.use_extractor:
@@ -134,9 +207,19 @@ class TripleDNet(nn.Module):
                 self.extractor.requires_grad_(False)
         if cfg.use_image_decoder:
             self.image_decoder = ImageDecoder(self.extractor.num_ch_enc[4], 3, remat=cfg.remat)
-        if any(cfg.disentangle_layers) and cfg.auto_res_weight > 0:
-            color_ch = [ch - ch // 2 if flag else ch
-                        for ch, flag in zip(enc_ch, cfg.disentangle_layers)]
+        # the colour decoder also exists for pose from prediction
+        if disentangled and (cfg.auto_res_weight > 0 or cfg.use_pfp):
+            if cfg.color_skip_type == "1x1":
+                # whole stages; those of color_skip_layers (stages 0-3)
+                # through the 1x1 block to half their channels
+                flags = tuple(cfg.color_skip_layers) + (False,)
+                self._color_skips = _skip_list(self, "color_skips", [
+                    SkipSplit(ch, split="1x1" if flag else None)
+                    for ch, flag in zip(enc_ch, flags)])
+                color_ch = [ch // 2 if flag else ch for ch, flag in zip(enc_ch, flags)]
+            else:  # the right half of each disentangled stage
+                color_ch = [ch - ch // 2 if flag else ch
+                            for ch, flag in zip(enc_ch, cfg.disentangle_layers)]
             self.color_decoder = ColorDecoder(
                 color_ch, 3, skip_connection_multiplier=cfg.skip_connection_multiplier,
                 skip_layers=cfg.color_skip_layers, remat=cfg.remat)
@@ -195,8 +278,10 @@ class TripleDNet(nn.Module):
         if self.training and "jitter_params" in inputs:
             inputs["color_aug"] = color_jitter(inputs["color"], inputs["jitter_params"])
         scene = self.depth_encoder(_nchw(self._cd(inputs["color_aug"][:, 0])))
-        depth_emb = [identity_partial(f) if flag else f
-                     for f, flag in zip(scene, c.disentangle_layers)]
+        if c.use_diffnet:  # HRNet's nested features go to the decoder as they are
+            depth_emb = scene
+        else:
+            depth_emb = [skip(f) for skip, f in zip(self._depth_skips, scene)]
         disps_nchw = self._f32(self.depth_decoder(depth_emb, generator))
         disps = [_nhwc(d) for d in disps_nchw]
         if not self.training:
@@ -204,11 +289,20 @@ class TripleDNet(nn.Module):
 
         outputs: Dict[str, Any] = {"disps": disps}
         if hasattr(self, "color_decoder"):
-            color_emb = [identity_partial(f, use_right=True) if flag else f
-                         for f, flag in zip(scene, c.disentangle_layers)]
+            if hasattr(self, "_color_skips"):
+                color_emb = [skip(f) for skip, f in zip(self._color_skips, scene)]
+            else:
+                color_emb = [identity_partial(f, use_right=True) if flag else f
+                             for f, flag in zip(scene, c.disentangle_layers)]
             outputs["auto_res"] = [_nhwc(x) for x in self._f32(
                 self.color_decoder(color_emb, self._cd(disps_nchw)))]
-        outputs["cam_T_cam"], outputs["map_logits"] = self._predict_poses(inputs)
+        # pose from prediction: the reconstructed target, at the pose size,
+        # stands for the target frame; the pose loss reaches the colour
+        # decoder through it
+        pose_target = None
+        if c.use_pfp and "auto_res" in outputs:
+            pose_target = resize_bilinear(outputs["auto_res"][0], c.pose_height, c.pose_width)
+        outputs["cam_T_cam"], outputs["map_logits"] = self._predict_poses(inputs, pose_target)
 
         features = None
         if c.im_rot:
@@ -262,9 +356,10 @@ class TripleDNet(nn.Module):
 
     # --------------------------------------------------------------- poses
 
-    def _predict_poses(self, inputs):
+    def _predict_poses(self, inputs, target=None):
         """PoseEncoder + PoseDecoder on each (temporally ordered) frame pair
-        at the fixed pose resolution. Map-pose mixes each source by
+        at the fixed pose resolution, with `target` (NHWC, at that size) in
+        place of the target frame where given. Map-pose mixes each source by
         alpha1 and the target by alpha2 inside the source's motion mask,
         and classifies the pose bottleneck's mean. Returns (cam_T_cam,
         map_logits), each by source frame index."""
@@ -273,7 +368,7 @@ class TripleDNet(nn.Module):
         def at_pose_res(x):
             return resize_bilinear(x, c.pose_height, c.pose_width)
 
-        tgt = at_pose_res(inputs["color_aug"][:, 0])
+        tgt = at_pose_res(inputs["color_aug"][:, 0]) if target is None else target
         cam_T_cam, map_logits = {}, {}
         for i, f_i in enumerate(c.frame_ids[1:], start=1):
             src = at_pose_res(inputs["color_aug"][:, i])

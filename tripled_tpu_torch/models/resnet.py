@@ -13,12 +13,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tripled_tpu_torch.models.layers import BatchNorm, Conv2d, conv_bn, remat
+from tripled_tpu_torch.models.layers import _TRUNC_STD, BatchNorm, Conv2d, conv_bn, remat
 
 BLOCK_COUNTS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
-
-# std of a unit normal truncated to [-2, 2]
-_TRUNC_STD = 0.87962566103423978
 
 
 def stage_channels(num_layers: int) -> tuple[int, ...]:

@@ -1,7 +1,12 @@
-"""Image resizing (`tripled_tpu/ops/image.py`). NHWC in and out."""
+"""Image resizing (`tripled_tpu/ops/image.py`). NHWC in and out, but for
+the network-internal upsamples (`upsample2x_nearest`,
+`resize_bilinear_align_corners`), which take NCHW."""
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -22,6 +27,44 @@ def resize_bilinear(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
     y = F.interpolate(_nchw(x), size=(height, width), mode="bilinear",
                       align_corners=False, antialias=False)
     return _nhwc(y)
+
+
+@functools.lru_cache(maxsize=None)
+def _align_corners_matrix(n_in: int, n_out: int, dtype, device) -> torch.Tensor:
+    """(n_out, n_in) weights of bilinear resampling with align_corners=True:
+    output i samples input i * (n_in - 1) / (n_out - 1). As the JAX package
+    computes them under jit (`tripled_tpu/ops/image.py:27-43`): in float32
+    whatever `dtype`, the matrix cast after; and XLA folds the division
+    into a multiplication by one float32 constant, f32(n_in - 1) times
+    f32(1 / (n_out - 1)), which moves some positions by an ulp (and their
+    weights by up to 1e-6) from the divided ones. F.interpolate in float64
+    computes float64 positions, about 1e-8 away. Built once per sizes,
+    dtype and device (HRNet resamples 31 times a forward), and never
+    written to."""
+    f32 = torch.float32
+    if n_out == 1 or n_in == 1:
+        pos = torch.zeros(n_out, dtype=f32, device=device)
+    else:
+        step = np.float32(n_in - 1) * (np.float32(1) / np.float32(n_out - 1))
+        pos = torch.arange(n_out, dtype=f32, device=device) * torch.tensor(step, device=device)
+    lo = pos.floor().clamp(0, n_in - 1).long()
+    hi = (lo + 1).clamp_max(n_in - 1)
+    frac = pos - lo.to(f32)
+    rows = torch.arange(n_out, device=device)
+    m = torch.zeros(n_out, n_in, dtype=f32, device=device)
+    m.index_put_((rows, lo), 1.0 - frac, accumulate=True)
+    m.index_put_((rows, hi), frac, accumulate=True)
+    return m.to(dtype)
+
+
+def resize_bilinear_align_corners(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """Bilinear resampling of an NCHW tensor with align_corners=True (the
+    HRNet fuse upsample), as two small matrix products."""
+    if x.shape[2] == height and x.shape[3] == width:
+        return x
+    mh = _align_corners_matrix(x.shape[2], height, x.dtype, x.device)
+    mw = _align_corners_matrix(x.shape[3], width, x.dtype, x.device)
+    return torch.einsum("bcow,pw->bcop", torch.einsum("oh,bchw->bcow", mh, x), mw)
 
 
 def _linear_aa_weights(n_in: int, n_out: int, dtype, device) -> torch.Tensor:

@@ -20,6 +20,25 @@ rematerialise), `decoder` and `head`. A `SegmentationNet` is `encoder` (a
 depth encoder or an extractor, `ResNetFeatures_0`) and `decoder`: its 1x1
 `Conv1x1_0`, then `ConvBlock_0..6` (per skip level its upconv and its
 merge, then the last block) and the head `Conv3x3_0`.
+
+The architecture options: each skip with variables is `depth_skips_i` or
+`color_skips_i` (a skip without variables has no entry), holding its
+attention (`CALayer_0`: `Conv_0`, `Conv_1`; or `AdaptivelyScaledCALayer_0`:
+`SqueezeAndExcitationBlock_0` on the std, `_1` on the mean, the fusing
+`Conv_0`, `SqueezeAndExcitationBlock_2`) and its 1x1 block (`Conv1x1_0`,
+and the package's `BatchNorm_0/BatchNorm_0`). The pixel-shuffle CRP
+decoder adds `UpShuffle_0..2/Conv_0` beside the unchanged `Conv3x3_*`
+numbering (the shuffle's conv is a plain `nn.Conv`). HR-Depth's decoder is
+`ConvBlock_0..17`, `Conv1x1_0..2` and `FSEModule_0..3` (`Dense_0`,
+`Dense_1`, `Conv_0`) in creation order, and the heads `Conv3x3_0..3`;
+DIFFNet's is `AttentionModule_0..3` (`ChannelAttention_0/Dense_0..1`,
+`Conv_0`), `ConvBlock_0..1` and `Conv3x3_0..3`. The HRNet encoder sits
+directly under `depth_encoder` (no wrapper, and no remat name whatever the
+config's remat): its stem and transition convs and BatchNorms are
+`Conv_k` / `BatchNorm_k` in creation order, layer1 `Bottleneck_0..3`, the
+modules `_HRModule_0..7`, each `BasicBlock_0..` branch by branch and
+`_FuseLayer_0` with its own `Conv_k` / `BatchNorm_k`. Its running
+statistics are carried like every other BatchNorm's.
 """
 
 from __future__ import annotations
@@ -34,7 +53,15 @@ from tripled_tpu_torch.models.aux_nets import Autoencoder, Dense, RotNet
 from tripled_tpu_torch.models.decoders import ColorDecoder, ImageDecoder
 from tripled_tpu_torch.models.depth_decoder import DepthDecoder
 from tripled_tpu_torch.models.encoders import DepthEncoder, Extractor, PoseEncoder
-from tripled_tpu_torch.models.net import DistillHead, TripleDNet
+from tripled_tpu_torch.models.hr_decoders import DIFFDepthDecoder, HRDepthDecoder
+from tripled_tpu_torch.models.hrnet import HRNetFeatures
+from tripled_tpu_torch.models.layers import (
+    AdaptivelyScaledCALayer,
+    AttentionModule,
+    CALayer,
+    FSEModule,
+)
+from tripled_tpu_torch.models.net import DistillHead, SkipSplit, TripleDNet
 from tripled_tpu_torch.models.pose_decoder import PoseDecoder
 from tripled_tpu_torch.models.resnet import Bottleneck, ResNetFeatures
 from tripled_tpu_torch.models.segmentation import SegDecoder, SegmentationNet
@@ -94,6 +121,8 @@ class _Loader:
             self.block(block, path + (name,))
 
     def depth_decoder(self, dec: DepthDecoder, path):
+        for k, shuffle in enumerate(getattr(dec, "shuffles", ())):
+            self.conv(shuffle.conv, path + (f"UpShuffle_{k}", "Conv_0"))
         for L, level in enumerate(dec.levels):
             self.conv(level.reduce, path + (f"Conv1x1_{L}", "Conv_0"))
             self.conv(level.iconv.conv, path + (f"Conv3x3_{3 * L}", "Conv_0"))
@@ -117,8 +146,7 @@ class _Loader:
             for block in blocks + [iconv]:
                 self.conv_block(block, n, path)
                 n += 1
-        for j, head in enumerate(dec.heads):
-            self.conv(head.conv, path + (f"Conv3x3_{j}", "Conv_0"))
+        self.heads(dec, path)
 
     def seg_decoder(self, dec: SegDecoder, path):
         self.conv(dec.reduce, path + ("Conv1x1_0", "Conv_0"))
@@ -127,15 +155,95 @@ class _Loader:
             self.conv_block(block, j, path)
         self.conv(dec.head.conv, path + ("Conv3x3_0", "Conv_0"))
 
-    def dense(self, m: Dense, path):
+    def dense(self, m: nn.Linear, path):
         kernel = self._pop(self.params, path + ("kernel",))
         self._write(m.weight, kernel.T, path + ("kernel",))
-        self._write(m.bias, self._pop(self.params, path + ("bias",)), path + ("bias",))
+        if m.bias is not None:
+            self._write(m.bias, self._pop(self.params, path + ("bias",)), path + ("bias",))
+
+    def ca_layer(self, att: CALayer, path):
+        self.conv(att.conv1, path + ("Conv_0",))
+        self.conv(att.conv2, path + ("Conv_1",))
+
+    def asca(self, att: AdaptivelyScaledCALayer, path):
+        for k, se in enumerate((att.se_std, att.se_mean, att.se_fused)):
+            self.conv(se.conv1, path + (f"SqueezeAndExcitationBlock_{k}", "Conv_0"))
+            self.conv(se.conv2, path + (f"SqueezeAndExcitationBlock_{k}", "Conv_1"))
+        self.conv(att.fuse, path + ("Conv_0",))
+
+    def skip(self, skip: SkipSplit, path):
+        if isinstance(skip.attention, CALayer):
+            self.ca_layer(skip.attention, path + ("CALayer_0",))
+        elif isinstance(skip.attention, AdaptivelyScaledCALayer):
+            self.asca(skip.attention, path + ("AdaptivelyScaledCALayer_0",))
+        if hasattr(skip, "conv"):
+            self.conv(skip.conv, path + ("Conv1x1_0", "Conv_0"))
+            self.bn(skip.bn, path + ("BatchNorm_0", "BatchNorm_0"))
+
+    def fse(self, fse: FSEModule, path):
+        """The JAX FSEModule holds its gate's Dense layers itself."""
+        self.attention_module(fse, path, gate=())
+
+    def attention_module(self, att: AttentionModule, path, gate=("ChannelAttention_0",)):
+        self.dense(att.attention.fc1, path + gate + ("Dense_0",))
+        self.dense(att.attention.fc2, path + gate + ("Dense_1",))
+        self.conv(att.conv, path + ("Conv_0",))
+
+    def conv_bns(self, layers, path):
+        for k, layer in enumerate(layers):
+            self.conv(layer.conv, path + (f"Conv_{k}",))
+            self.bn(layer.bn, path + (f"BatchNorm_{k}",))
+
+    def hrnet(self, net: HRNetFeatures, path):
+        self.conv_bns(net.conv_bns(), path)
+        for b, block in enumerate(net.layer1):
+            self.block(block, path + (f"Bottleneck_{b}",))
+        modules = [m for stage in net.stages for m in stage]
+        for k, module in enumerate(modules):
+            p = path + (f"_HRModule_{k}",)
+            blocks = [b for branch in module.branches for b in branch]
+            for j, block in enumerate(blocks):
+                self.block(block, p + (f"BasicBlock_{j}",))
+            if module.fuse is not None:
+                self.conv_bns([layer for chain in module.fuse.paths for layer in chain],
+                              p + ("_FuseLayer_0",))
+
+    def hr_depth_decoder(self, dec: HRDepthDecoder, path):
+        for j, block in enumerate(dec.blocks):
+            self.conv_block(block, j, path)
+        for j, conv in enumerate(dec.reduces):
+            self.conv(conv, path + (f"Conv1x1_{j}", "Conv_0"))
+        for j, fse in enumerate(dec.fse):
+            self.fse(fse, path + (f"FSEModule_{j}",))
+        self.heads(dec, path)
+
+    def diff_depth_decoder(self, dec: DIFFDepthDecoder, path):
+        for j, att in enumerate(dec.attention):
+            self.attention_module(att, path + (f"AttentionModule_{j}",))
+        for j, block in enumerate(dec.blocks):
+            self.conv_block(block, j, path)
+        self.heads(dec, path)
+
+    def heads(self, dec, path):
+        for j, head in enumerate(dec.heads):
+            self.conv(head.conv, path + (f"Conv3x3_{j}", "Conv_0"))
 
     def module(self, m: nn.Module, path=()):
         if isinstance(m, (TripleDNet, Autoencoder, RotNet, SegmentationNet)):
             for name, child in m.named_children():
-                self.module(child, path + (name,))
+                if isinstance(child, nn.ModuleList):  # flax names a list's items name_i
+                    for i, item in enumerate(child):
+                        self.module(item, path + (f"{name}_{i}",))
+                else:
+                    self.module(child, path + (name,))
+        elif isinstance(m, SkipSplit):
+            self.skip(m, path)
+        elif isinstance(m, HRNetFeatures):
+            self.hrnet(m, path)
+        elif isinstance(m, HRDepthDecoder):
+            self.hr_depth_decoder(m, path)
+        elif isinstance(m, DIFFDepthDecoder):
+            self.diff_depth_decoder(m, path)
         elif isinstance(m, (DepthEncoder, PoseEncoder, Extractor)):
             name = "ResNetFeatures_0"
             node = self.params
