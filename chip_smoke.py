@@ -52,6 +52,19 @@ Phases, each printed as one JSON line with its wall time:
            on one 375x1242 frame of the tree (its depth map held against the
            loaded model's prediction), `cli.infer_singleimage --limit 4` and
            `cli.gather_inference_imgs` with the config twice
+  eval_pose  `cli.eval_pose` on that checkpoint over a synthetic odometry
+           sequence (41 frames at 376x1241, the parallax scene along its
+           known camera path; 40 (cur, next) pairs at the config's
+           320x1024, batches of 8): the CLI's seconds, the pose forwards'
+           pairs/s, the 5-frame ATE, and the same CLI on the CPU, whose
+           transforms must agree within POSE_BOUND
+  draw_odometry  `cli.draw_odometry` on the same checkpoint and sequence:
+           its global poses against eval_pose's transforms accumulated, its
+           files, and whether it wrote the plots (only with matplotlib)
+  eval_make3d  `cli.eval_make3d` on that checkpoint (R50 depth at the
+           protocol's 192x640) over 3 synthetic Make3D images at 1704x2272:
+           its seconds and four errors, against the CPU's within MAKE3D_RTOL
+           relative; none of the three launches a photometric kernel
   loader   on a second tree (98 frames at 375x1242: 8 steps of 12 an epoch),
            the loader alone at the flagship's size (kitti_inpaint, 320x1024,
            batch 12, decode cache off): ms per batch on 1 and 4 threads for
@@ -854,6 +867,149 @@ def infer_path(dev, tmp, paths):
             "depth_max_rel_gap_to_predict": rel, "disp_png": list(disp_png.shape),
             "singleimage_files": len(singles), "grids": len(grids),
             "grid_shape": list(grid_shape), "cli_seconds": seconds}
+
+
+# the eval CLIs' card-against-CPU bounds: the largest element gap of the
+# odometry transforms, and the Make3D errors' largest relative gap (seen on
+# an H100 80GB HBM3 at 700 W, TF32 off: 6.0e-8 and 7.3e-9)
+POSE_BOUND = 1e-6
+MAKE3D_RTOL = 1e-5
+ODOM_FRAMES = 41
+
+
+def _nan_to_none(x):
+    return None if isinstance(x, float) and math.isnan(x) else x
+
+
+def eval_pose_path(photometric, dev, tmp, paths):
+    """`cli.eval_pose` on train_cli's epoch-2 checkpoint over a synthetic
+    odometry sequence at KITTI odometry's 376x1241, read at the config's
+    320x1024, on the card and then on the CPU. Returns the tree, the config
+    pointed at it, the card's transforms and the measurements."""
+    import numpy as np
+
+    from tripled_tpu_torch.cli import eval_pose
+    from tripled_tpu_torch.data.synthetic import make_kitti_odom_tree
+
+    t0 = time.perf_counter()
+    odom = make_kitti_odom_tree(os.path.join(tmp, "odom"), num_frames=ODOM_FRAMES, height=376,
+                                width=1241, render_scale=4)
+    tree_s = time.perf_counter() - t0
+    cfg = write_cli_config(os.path.join(tmp, "cfg_odom.py"),
+                           {"root": odom["root"], "gt_depth_path": paths["tree"]["gt_depth_path"]},
+                           2, paths["work"])
+    argv = ["--config", cfg, "--checkpoint", os.path.join(paths["work"], "ckpt", "epoch_2"),
+            "--sequence", odom["sequence"], "--gt_poses_dir", odom["gt_poses_dir"]]
+    reset_launches(photometric)
+    seconds = []
+    with env_vars(TRIPLED_SPLITS_DIR=odom["splits_dir"]):
+        t0 = time.perf_counter()
+        card = eval_pose.main(argv + ["--device", str(dev)])
+        seconds.append(time.perf_counter() - t0)
+        launches = dict(photometric.launches)
+        t0 = time.perf_counter()
+        cpu = eval_pose.main(argv + ["--device", "cpu"])
+        seconds.append(time.perf_counter() - t0)
+    gap = float(np.abs(card["transforms"] - cpu["transforms"]).max())
+    n = ODOM_FRAMES - 1
+    if (card["transforms"].shape != (n, 4, 4) or not np.isfinite(card["transforms"]).all()
+            or card["pairs"] != n or gap > POSE_BOUND or not math.isfinite(card["ate_mean"])):
+        raise AssertionError(f"eval_pose: {card['transforms'].shape} transforms, {card['pairs']} "
+                             f"pairs, card-CPU gap {gap} (bound {POSE_BOUND}), ATE "
+                             f"{card['ate_mean']}")
+    if any(launches.values()):
+        raise AssertionError(f"eval_pose launched photometric kernels: {launches}")
+    row = {"checkpoint": "train_cli's ckpt/epoch_2 (cfg_kitti_tripled.py: R18 pose net)",
+           "sequence": {"frames": ODOM_FRAMES, "height": 376, "width": 1241,
+                        "rendered_at": "1/4 size, resized", "seconds": tree_s},
+           "pairs": n, "pair_size": [320, 1024], "batch": 8,
+           "cli_seconds": seconds[0], "cpu_cli_seconds": seconds[1],
+           "pose_forward_s": card["forward_s"],
+           "pose_forward_s_by_batch": card["forward_s_by_batch"],
+           "pairs_per_s": n / card["forward_s"],
+           # the first batch pays cuDNN's first-call set-up
+           "pairs_per_s_after_first_batch": (n - 8) / sum(card["forward_s_by_batch"][1:])
+           if n > 8 else None,
+           "cpu_pairs_per_s": n / cpu["forward_s"],
+           "ate_mean": card["ate_mean"], "ate_std": card["ate_std"],
+           "cpu_ate_mean": cpu["ate_mean"], "transforms_max_abs_gap_to_cpu": gap,
+           "bound": POSE_BOUND, "launches": launches}
+    return odom, cfg, card["transforms"], row
+
+
+def draw_odometry_path(photometric, dev, tmp, paths, odom, cfg, transforms):
+    """`cli.draw_odometry` on the same checkpoint and sequence: its global
+    poses against those accumulated from eval_pose's transforms, its files,
+    and whether it wrote the plots (matplotlib installed or not)."""
+    import numpy as np
+
+    from tripled_tpu_torch.cli import draw_odometry
+    from tripled_tpu_torch.eval.odometry import have_matplotlib
+    from tripled_tpu_torch.eval.pose import accumulate_global_poses
+
+    out_dir = os.path.join(tmp, "odometry_out")
+    seq = odom["sequence"]
+    reset_launches(photometric)
+    with env_vars(TRIPLED_SPLITS_DIR=odom["splits_dir"]):
+        result = draw_odometry.main([
+            "--config", cfg, "--checkpoint", os.path.join(paths["work"], "ckpt", "epoch_2"),
+            "--sequence", seq, "--gt_poses_dir", odom["gt_poses_dir"], "--out_dir", out_dir,
+            "--device", str(dev)])
+    launches = dict(photometric.launches)
+    gap = float(np.abs(result["global_poses"] - accumulate_global_poses(transforms)).max())
+    files = sorted(os.listdir(out_dir))
+    needed = [f"{seq}_pred.txt", f"{seq}_seq_errors.txt", f"{seq}_stats.txt"]
+    have_mpl = have_matplotlib()
+    if (not set(needed) <= set(files) or result["plots_written"] != have_mpl
+            or (f"{seq}_path.png" in files) != have_mpl or gap > POSE_BOUND
+            or not math.isfinite(result["ate_rmse"]) or any(launches.values())):
+        raise AssertionError(f"draw_odometry: files {files}, plots {result['plots_written']} "
+                             f"(matplotlib {have_mpl}), gap to eval_pose {gap}, ATE "
+                             f"{result['ate_rmse']}, launches {launches}")
+    return {"files": files, "plots_written": result["plots_written"],
+            "matplotlib": have_mpl, "global_poses_max_abs_gap_to_eval_pose": gap,
+            "ate_rmse": result["ate_rmse"],
+            # no 100 m segment in the sequence: the devkit's errors are nan
+            "t_err_percent": _nan_to_none(result["t_err_percent"]),
+            "r_err_deg_per_m": _nan_to_none(result["r_err_deg_per_m"]),
+            "launches": launches}
+
+
+def eval_make3d_path(photometric, dev, tmp, paths, seed):
+    """`cli.eval_make3d` on train_cli's epoch-2 checkpoint (the flagship's
+    R50 depth net, run at the protocol's 192x640) over a synthetic Make3D
+    tree of 3 images at 1704x2272, on the card and then on the CPU."""
+    import numpy as np
+    import scipy
+
+    from tripled_tpu_torch.cli import eval_make3d
+    from tripled_tpu_torch.data.synthetic import make_make3d_tree
+
+    t0 = time.perf_counter()
+    root = make_make3d_tree(os.path.join(tmp, "make3d"), num_images=3, seed=seed)
+    tree_s = time.perf_counter() - t0
+    argv = ["--config", paths["config"], "--checkpoint",
+            os.path.join(paths["work"], "ckpt", "epoch_2"), "--make3d_path", root]
+    reset_launches(photometric)
+    t0 = time.perf_counter()
+    card = eval_make3d.main(argv + ["--device", str(dev)])
+    seconds = [time.perf_counter() - t0]
+    launches = dict(photometric.launches)
+    t0 = time.perf_counter()
+    cpu = eval_make3d.main(argv + ["--device", "cpu"])
+    seconds.append(time.perf_counter() - t0)
+    rel = float(np.abs(card / cpu - 1).max())
+    if card.shape != (4,) or not np.isfinite(card).all() or rel > MAKE3D_RTOL or any(
+            launches.values()):
+        raise AssertionError(f"eval_make3d: errors {card} against the CPU's {cpu} (rel gap "
+                             f"{rel}, bound {MAKE3D_RTOL}), launches {launches}")
+    return {"checkpoint": "train_cli's ckpt/epoch_2 (cfg_kitti_tripled.py: R50 depth net)",
+            "images": 3, "image_size": [1704, 2272], "tree_seconds": tree_s,
+            "scipy": scipy.__version__, "numpy": np.__version__,
+            "cli_seconds": seconds[0], "cpu_cli_seconds": seconds[1],
+            "errors": dict(zip(("abs_rel", "sq_rel", "rmse", "log10"), card.tolist())),
+            "cpu_errors": cpu.tolist(), "max_rel_gap_to_cpu": rel, "bound": MAKE3D_RTOL,
+            "launches": launches}
 
 
 def host_env():
@@ -1954,6 +2110,18 @@ def main():
         phase("train_cli", t0, card=card, bare_flagship_ms_per_step=flagship_ms, **cli)
         t0 = time.perf_counter()
         phase("infer", t0, card=card, **infer_path(dev, tmp, paths))
+        t0 = time.perf_counter()
+        odom, odom_cfg, transforms, pose_row = eval_pose_path(photometric, dev, tmp, paths)
+        launches_by_path["eval_pose"] = pose_row["launches"]
+        phase("eval_pose", t0, card=card, **pose_row)
+        t0 = time.perf_counter()
+        draw_row = draw_odometry_path(photometric, dev, tmp, paths, odom, odom_cfg, transforms)
+        launches_by_path["draw_odometry"] = draw_row["launches"]
+        phase("draw_odometry", t0, card=card, **draw_row)
+        t0 = time.perf_counter()
+        make3d_row = eval_make3d_path(photometric, dev, tmp, paths, args.seed)
+        launches_by_path["eval_make3d"] = make3d_row["launches"]
+        phase("eval_make3d", t0, card=card, **make3d_row)
 
     with tempfile.TemporaryDirectory(prefix="train_cli_fast_") as tmp:
         from tripled_tpu_torch.config import load_config

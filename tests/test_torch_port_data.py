@@ -179,11 +179,11 @@ def test_batch_loader_matches_jax(tree, num_workers):
 
 def test_get_dataset_names(tree, monkeypatch):
     monkeypatch.setenv("TRIPLED_SPLITS_DIR", tree["splits_dir"])
-    for name in ("kitti", "kitti_inpaint", "kitti_map", "kitti_odom", "folder", "eth3d", "euroc"):
+    for name in ("kitti", "kitti_inpaint", "kitti_map", "kitti_odom", "kitti_depth", "folder",
+                 "eth3d", "euroc"):
         assert _DATASETS[name].__name__ == JAX_DATASETS[name].__name__
-    for name in ("kitti_depth", "cityscape"):
-        with pytest.raises(KeyError, match="later slice"):
-            get_dataset(DataConfig(**_data_kw(tree) | {"name": name}))
+    with pytest.raises(KeyError, match="later slice"):
+        get_dataset(DataConfig(**_data_kw(tree) | {"name": "cityscape"}))
     with pytest.raises(KeyError, match="unknown dataset"):
         get_dataset(DataConfig(**_data_kw(tree) | {"name": "nope"}))
     # the split comes from $TRIPLED_SPLITS_DIR, as in the JAX package

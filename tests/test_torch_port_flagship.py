@@ -41,10 +41,15 @@ def flagship_kwargs(automask=True):
                 skip_connection_multiplier=1.0, depth_disentangle_type="use_half")
 
 
-def flagship_inputs(dtype=np.float32):
+def flagship_inputs(dtype=np.float32, h=H, w=W, sources=2):
+    """make_inputs with six 8x8 erased squares per sample; at another size
+    (h, w) or with fewer source frames where the step files cut them."""
     rng = np.random.RandomState(5)
-    mask = np.stack([make_erase_mask(rng, H, W, (8, 8), 6) for _ in range(B)])
-    return make_inputs(dtype, H, W, mask=mask)
+    mask = np.stack([make_erase_mask(rng, h, w, (8, 8), 6) for _ in range(B)])
+    inputs = make_inputs(dtype, h, w, mask=mask)
+    for key in ("color", "color_aug"):
+        inputs[key] = inputs[key][:, :1 + sources]
+    return inputs
 
 
 EXPECTED_KEYS = (

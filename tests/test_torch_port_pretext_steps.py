@@ -62,10 +62,11 @@ def pretext_kwargs(name, **extra):
     return dict(kw, **SHIPPED[name], **extra)
 
 
-def pretext_inputs(dtype=np.float64, erase_border=False):
+def pretext_inputs(dtype=np.float64, erase_border=False, **size):
     """The small flagship's inputs, with motion masks and map params; with
-    `erase_border`, a 2-pixel border of the inpaint mask erased too."""
-    inputs = flagship_inputs(dtype)
+    `erase_border`, a 2-pixel border of the inpaint mask erased too; `size`,
+    flagship_inputs' h, w and sources where a step file cuts them."""
+    inputs = flagship_inputs(dtype, **size)
     if erase_border:
         m = inputs["mask"]
         m[:, :2], m[:, -2:], m[:, :, :2], m[:, :, -2:] = 0, 0, 0, 0
@@ -103,12 +104,12 @@ def fixed_draws(monkeypatch):
                         (*OFFSET, torch.tensor(LABELS[:batch])))
 
 
-def expected_keys(name):
+def expected_keys(name, scales=range(4)):
     """The port's loss keys in order, then the total and the norm."""
     ext = [f"feature_regularization_loss/{i}" for i in range(5)]
     keys = {
         "mono_fm_joint_im_rot": ext + ["min_perceptional_loss", "ssl_rot_loss"]
-        + [f"{k}/{s}" for s in range(4) for k in ("min_reconstruct_loss", "smooth_loss")],
+        + [f"{k}/{s}" for s in scales for k in ("min_reconstruct_loss", "smooth_loss")],
         "mono_fm_joint_inpaint_map_pose":
             [f"{k}/{s}" for s in range(4) for k in ("min_reconstruct_loss", "smooth_loss")]
             + ["map_pose_loss/1", "map_pose_loss/2"],
@@ -127,7 +128,7 @@ def hold_f64(name, inputs=None, **extra):
     with jax.enable_x64(True):
         jm, tm, *rest = run_both(pretext_kwargs(name, **extra), dtype=np.float64,
                                  inputs=pretext_inputs() if inputs is None else inputs)
-    assert list(tm) == expected_keys(name)
+    assert list(tm) == expected_keys(name, extra.get("scales", range(4)))
     # the rotation head's bias meets a softmax over the batch, which
     # cancels it: its gradient is zero but for rounding
     zero = {"mono_fm_joint_im_rot": ("rot_head.bias",), "rotnet": ("head.bias",)}

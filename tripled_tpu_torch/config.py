@@ -134,6 +134,8 @@ class ModelConfig:
             raise ValueError(f"compute_dtype must be 'float32' or 'bfloat16', "
                              f"got {self.compute_dtype!r}")
         later = "a later slice of the port"
+        if "s" in self.frame_ids:
+            raise ValueError(f"'s' in frame_ids waits for {later}")
         from tripled_tpu_torch.presets import PRETEXT_PRESETS  # presets imports this module
         if self.compute_dtype == "bfloat16" and self.name in PRETEXT_PRESETS:
             raise ValueError(f"compute_dtype='bfloat16' for {self.name!r} waits for {later}")

@@ -34,6 +34,7 @@ dataset counts its decodes by decoder in `counters` (`decodes_native`,
 
 from __future__ import annotations
 
+import datetime
 import os
 import threading
 import time
@@ -42,7 +43,7 @@ from typing import Sequence
 import numpy as np
 
 from tripled_tpu_torch.config import DataConfig
-from tripled_tpu_torch.data import native_loader
+from tripled_tpu_torch.data import kitti_utils, native_loader
 from tripled_tpu_torch.data.transforms import (
     ColorJitter,
     load_image,
@@ -268,6 +269,39 @@ class KITTIRawDataset(MonoDataset):
         f_str = f"{frame_index:010d}{self.img_ext}"
         return os.path.join(self.data_path, folder, f"image_0{self.side_map[side]}/data", f_str)
 
+    def get_depth(self, folder, frame_index, side, do_flip):
+        """The sparse depth map (H, W) of the frame's velodyne scan,
+        projected into the side's camera (`kitti_utils.generate_depth_map`)."""
+        calib_path = os.path.join(self.data_path, folder.split("/")[0])
+        velo = os.path.join(self.data_path, folder,
+                            f"velodyne_points/data/{int(frame_index):010d}.bin")
+        depth = kitti_utils.generate_depth_map(calib_path, velo, self.side_map[side])
+        if do_flip:
+            depth = np.fliplr(depth)
+        return depth
+
+    def get_pose(self, folder, frame_index, offset):
+        """OXTS speed-integrated relative displacement in the rectified cam
+        frame (`kitti_dataset.py:220-243`)."""
+        oxts_root = os.path.join(self.data_path, folder, "oxts")
+        with open(os.path.join(oxts_root, "timestamps.txt")) as f:
+            timestamps = np.array([
+                datetime.datetime.strptime(ts[:-3], "%Y-%m-%d %H:%M:%S.%f").timestamp()
+                for ts in f.read().splitlines()])
+        speed0 = np.genfromtxt(
+            os.path.join(oxts_root, "data", f"{frame_index:010d}.txt"))[[8, 9, 10]]
+        dt = timestamps[frame_index + offset] - timestamps[frame_index]
+        displacement = speed0 * dt
+        root = os.path.join(self.data_path, os.path.dirname(folder))
+        imu2velo = kitti_utils.read_calib_file(os.path.join(root, "calib_imu_to_velo.txt"))
+        velo2cam = kitti_utils.read_calib_file(os.path.join(root, "calib_velo_to_cam.txt"))
+        cam2cam = kitti_utils.read_calib_file(os.path.join(root, "calib_cam_to_cam.txt"))
+        velo2cam_mat = kitti_utils.transform_from_rot_trans(velo2cam["R"], velo2cam["T"])
+        imu2velo_mat = kitti_utils.transform_from_rot_trans(imu2velo["R"], imu2velo["T"])
+        rect = kitti_utils.transform_from_rot_trans(cam2cam["R_rect_00"], np.zeros(3))
+        imu2cam = rect @ velo2cam_mat @ imu2velo_mat
+        return imu2cam[:3, :3] @ displacement + imu2cam[:3, 3]
+
 
 class KITTIInpaintDataset(KITTIRawDataset):
     def post_process(self, out, rng):
@@ -315,6 +349,24 @@ class KITTIOdomDataset(MonoDataset):
         side_map = {"l": 0, "r": 1}
         return os.path.join(self.data_path, f"sequences/{int(folder):02d}",
                             f"image_{side_map[side]}", f"{frame_index:06d}{self.img_ext}")
+
+
+class KITTIDepthDataset(KITTIRawDataset):
+    """KITTI raw frames with the improved png ground-truth depth maps
+    (`kitti_dataset.py:341-371`), resized to `full_res_shape` by PIL's
+    nearest neighbour as the JAX package resizes them."""
+
+    def get_depth(self, folder, frame_index, side, do_flip):
+        from PIL import Image
+
+        p = os.path.join(self.data_path, folder,
+                         f"proj_depth/groundtruth/image_0{self.side_map[side]}",
+                         f"{frame_index:010d}.png")
+        depth = Image.open(p).resize(self.full_res_shape, Image.NEAREST)
+        depth = np.asarray(depth, np.float32) / 256.0
+        if do_flip:
+            depth = np.fliplr(depth)
+        return depth
 
 
 class FolderDataset(MonoDataset):

@@ -7,6 +7,7 @@ from tripled_tpu_torch.data.datasets import (
     ETH3DDataset,
     EuRoCDataset,
     FolderDataset,
+    KITTIDepthDataset,
     KITTIInpaintDataset,
     KITTIMapDataset,
     KITTIOdomDataset,
@@ -19,12 +20,14 @@ _DATASETS = {
     "kitti_inpaint": KITTIInpaintDataset,
     "kitti_map": KITTIMapDataset,
     "kitti_odom": KITTIOdomDataset,
+    "kitti_depth": KITTIDepthDataset,
     "folder": FolderDataset,
     "eth3d": ETH3DDataset,
     "euroc": EuRoCDataset,
 }
 # names the JAX package knows whose datasets wait for a later slice
-_LATER = ("kitti_depth", "cityscape")
+# (CityscapeDataset needs the optional lmdb package)
+_LATER = ("cityscape",)
 
 
 def get_dataset(cfg: DataConfig, training: bool = True, split_file: str | None = None):

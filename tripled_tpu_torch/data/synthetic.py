@@ -327,3 +327,80 @@ def make_cityscapes_seg_tree(root: str, frames=None, height: int = 1024, width: 
             Image.fromarray(img).save(os.path.join(img_dir, f"{stem}_leftImg8bit.png"))
             Image.fromarray(lab).save(os.path.join(lab_dir, f"{stem}_gtFine_labelIds.png"))
     return root
+
+
+# ------------------------------------------------ odometry and Make3D trees
+# Not in the JAX package's synthetic.py either: the inputs of the odometry
+# and Make3D evaluation entry points (`cli/eval_pose.py`,
+# `cli/draw_odometry.py`, `cli/eval_make3d.py`).
+
+
+def make_kitti_odom_tree(root: str, sequence: str = "09", num_frames: int = 12,
+                         height: int = 96, width: int = 320, render_scale: int = 1) -> dict:
+    """KITTI odometry layout: `sequences/<seq>/image_0/<i>.png`, the parallax
+    scene seen along `_parallax_cam`; `splits/odom/test_files_<seq>.txt`,
+    one `<seq> <i> l` line per frame that has a next one; and
+    `poses/<seq>.txt`, the ground-truth camera-to-world poses in KITTI's
+    3x4 format (no rotation, `_PARALLAX_STEP` a frame). With `render_scale`
+    k > 1 each frame is rendered at 1/k of the size and resized to it
+    (bilinear), k * k times quicker. Returns the paths."""
+    img_dir = os.path.join(root, "sequences", sequence, "image_0")
+    split_dir = os.path.join(root, "splits", "odom")
+    pose_dir = os.path.join(root, "poses")
+    for d in (img_dir, split_dir, pose_dir):
+        os.makedirs(d, exist_ok=True)
+    h, w = height // render_scale, width // render_scale
+    fx, fy, cx, cy = 0.58 * w, 1.92 * h, 0.5 * w, 0.5 * h
+    with open(os.path.join(pose_dir, f"{sequence}.txt"), "w") as f:
+        for i in range(num_frames):
+            img, _ = _render_parallax(_parallax_cam(i), h, w, fx, fy, cx, cy)
+            img = Image.fromarray((img * 255).astype(np.uint8))
+            if (h, w) != (height, width):
+                img = img.resize((width, height), Image.BILINEAR)
+            img.save(os.path.join(img_dir, f"{i:06d}.png"))
+            T = np.eye(4)[:3]
+            T[:, 3] = _parallax_cam(i)
+            f.write(" ".join(f"{v:.6e}" for v in T.reshape(-1)) + "\n")
+    with open(os.path.join(split_dir, f"test_files_{sequence}.txt"), "w") as f:
+        f.write("".join(f"{int(sequence)} {i} l\n" for i in range(num_frames - 1)))
+    return {"root": root, "splits_dir": os.path.join(root, "splits"), "gt_poses_dir": pose_dir,
+            "sequence": sequence, "num_frames": num_frames}
+
+
+MAKE3D_IMAGE_SIZE = (1704, 2272)  # (W, H) of a Make3D Test134 image
+MAKE3D_GRID = (55, 305)  # Position3DGrid's rows and columns
+
+
+def make_make3d_tree(root: str, num_images: int = 3, seed: int = 0) -> str:
+    """Make3D layout: `Test134/img-<name>.jpg` at 1704x2272 (W x H) and
+    `Gridlaserdata/depth_sph_corr-<name>.mat`, whose (55, 305, 4)
+    `Position3DGrid` holds x, y, z and the depth of each laser ray. Each
+    image is the parallax scene from its own camera position, rendered at an
+    eighth of the size and resized; the grid is the same scene's depth from
+    the same camera over the same field of view, its top five rows at 80 m
+    (beyond the protocol's 70 m cap). Returns `root`."""
+    import scipy.io
+
+    img_dir = os.path.join(root, "Test134")
+    mat_dir = os.path.join(root, "Gridlaserdata")
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(mat_dir, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    w, h = MAKE3D_IMAGE_SIZE[0] // 8, MAKE3D_IMAGE_SIZE[1] // 8
+    gh, gw = MAKE3D_GRID
+    f = 0.8 * w
+    for k in range(num_images):
+        cam = np.asarray([rng.uniform(-1, 1), rng.uniform(-0.3, 0.3), rng.uniform(0, 20)],
+                         np.float32)
+        img, _ = _render_parallax(cam, h, w, f, f, 0.5 * w, 0.5 * h)
+        Image.fromarray((img * 255).astype(np.uint8)).resize(
+            MAKE3D_IMAGE_SIZE, Image.BILINEAR).save(os.path.join(img_dir, f"img-{k:03d}.jpg"))
+        fx, fy = f * gw / w, f * gh / h
+        _, depth = _render_parallax(cam, gh, gw, fx, fy, 0.5 * gw, 0.5 * gh)
+        depth[:5] = 80.0
+        v, u = np.mgrid[0:gh, 0:gw].astype(np.float32)
+        grid = np.stack([(u - 0.5 * gw) / fx * depth, (v - 0.5 * gh) / fy * depth, depth,
+                         depth], -1)
+        scipy.io.savemat(os.path.join(mat_dir, f"depth_sph_corr-{k:03d}.mat"),
+                         {"Position3DGrid": grid.astype(np.float64)})
+    return root

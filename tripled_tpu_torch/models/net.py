@@ -356,6 +356,24 @@ class TripleDNet(nn.Module):
 
     # --------------------------------------------------------------- poses
 
+    def predict_pose(self, img_pair):
+        """Pose inference for odometry evaluation (the JAX package's
+        `TripleDNet.predict_pose` with train=False): `img_pair` is the
+        channel-concatenated (cur, next) frames (B, H, W, 6); returns
+        (axisangle, translation), each (B, 1, 1, 3). The pose encoder and
+        decoder run in eval mode, BatchNorm on its running statistics, and
+        every module is left in the mode it was in."""
+        modules = [m for net in (self.pose_encoder, self.pose_decoder) for m in net.modules()]
+        modes = [m.training for m in modules]
+        try:
+            for m in modules:
+                m.training = False
+            feats = self.pose_encoder(_nchw(img_pair))
+            return self.pose_decoder(feats[-1])
+        finally:
+            for m, mode in zip(modules, modes):
+                m.training = mode
+
     def _predict_poses(self, inputs, target=None):
         """PoseEncoder + PoseDecoder on each (temporally ordered) frame pair
         at the fixed pose resolution, with `target` (NHWC, at that size) in
