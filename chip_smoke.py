@@ -11,7 +11,9 @@ Phases, each printed as one JSON line with its wall time:
   kernels  each kernel against its plain PyTorch version on the card, with
            CUDA-event times: the photometric kernels at the mono_fm shape
            (192x640, f32 and bf16), the flagship's (320x1024, f32 and bf16)
-           and a ragged one; the row-window sum at the probe's shape and at
+           and a ragged one, and untimed at the slabs of bench_rows, stereo
+           and train_cli_stereo (from their configs: those phases fail on a
+           slab that was not checked); the row-window sum at the probe's shape and at
            the flagship's photometric candidate slab, beside one conv2d call
   reference  a small mono_fm step on the card against the same step on the CPU
   reference_flagship  the same for a small flagship step (R18, 64x160,
@@ -22,7 +24,7 @@ Phases, each printed as one JSON line with its wall time:
            steps, the kernels' launch counts over the timed steps
   predict  eval-mode prediction on one batch
   profile  where the step's device time goes: 3 more steps under
-           torch.profiler (device-busy time, idle share, time by kernel
+           torch.profiler tracing the device alone (device-busy time, idle share, time by kernel
            family), and 3 split by CUDA events that hooks record around the
            same step (each network's forward, warps and losses, backward,
            optimizer)
@@ -153,6 +155,31 @@ Phases, each printed as one JSON line with its wall time:
            tree, then `cli.infer_singleimage --limit 4` on its checkpoint,
            and the checkpoint restored, whose prediction must equal the
            trained model's
+  options_reference  (after variants) each warp and kernel option (the block
+           warp in (2, 2) and (2, 4), the block feature warp, bf16 texels,
+           warp_align_corners=False, the eq-mask pool, the unfused
+           photometric path with automask off) on the small mono_fm step
+           (R18, 64x160, the pose net at 32x96, batch 2), card against
+           CPU, bounded as reference_distill; the unfused path launches no
+           photometric kernel
+  bench_rows  `bench.py`'s two default rows (`presets.mono_fm_r50_192x640`:
+           bf16, bf16 texels, the 2x2 block warp, batch 16;
+           `presets.tripled_r50_320x1024`: the same with remat, batch 8)
+           from random weights, each beside its exact warp and the headline
+           also with the eq-mask pool, each variant a model of its own
+           config on the default's weights, in alternating windows (3
+           warm-up steps, 1 for each further variant, then per variant and round 5 timed steps,
+           each ending in a scalar readback, 2 rounds): ms/step, images/s,
+           peak memory less the other variants' resident states, the photometric
+           launches by slab dtype; and the pool's forward and backward
+           alone beside F.max_pool2d's
+  stereo   mono+stereo frame ids (0, -1, 1, "s") at mono_fm_bench()'s widths
+           (automask and disp_norm off, f32, batch 12): 1 warm-up step, 3
+           timed steps, 4 launches a step over K = 3 warped candidates
+  train_cli_stereo  (after train_cli_diffnet) the train CLI on such a config
+           (through configs/_common.py) for 1 epoch of 4 steps with its eval
+           hook on the 98-frame tree, then `cli.eval_depth` (stereo_scale), which
+           must give the hook's metrics
   probe    `python -m tripled_tpu_torch.dev.element_probe`'s main() on the card
 Then the kernel summary line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Any failure raises and exits
@@ -163,6 +190,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import dataclasses
 import gc
 import json
@@ -285,18 +313,35 @@ MONO_FM_SHAPE = (12, 4, 192, 640, 3)
 FLAGSHIP_SHAPE = (12, 4, 320, 1024, 3)
 
 
-def check_kernels(photometric, dev, seed):
-    """Each photometric kernel against its plain version; returns the timed
-    rows by (shape, dtype)."""
+def slab_case(model_cfg, data_cfg):
+    """The candidate slab (B, K, H, W, C) that a training step of
+    `model_cfg` hands the photometric kernels, its dtype and its count of
+    identity candidates (`models/net.py`'s loss: the identity frames first
+    under automask, then one warped frame per source frame, in the compute
+    dtype)."""
+    n_src = model_cfg.num_frames - 1
+    n_id = n_src if model_cfg.automask else 0
+    dtype = torch.bfloat16 if model_cfg.compute_dtype == "bfloat16" else torch.float32
+    return (data_cfg.batch_size, n_id + n_src, model_cfg.height, model_cfg.width, 3), dtype, n_id
+
+
+def check_kernels(photometric, dev, seed, path_cases=()):
+    """Each photometric kernel against its plain version, at the timed
+    shapes, a ragged one, and untimed at each (shape, dtype, identity
+    count) of `path_cases` (slab_case of the phases that check their slabs
+    with slabs_within). Returns the timed rows by (shape, dtype) and the
+    set of checked slabs as slabs_within records them."""
     gen = torch.Generator(dev).manual_seed(seed)
     tol = {torch.float32: (1e-5, 0.9999, 1e-4), torch.bfloat16: (1e-5, 0.9999, 8e-3)}
-    cases = [(MONO_FM_SHAPE, torch.float32, True),
-             (MONO_FM_SHAPE, torch.bfloat16, True),
-             (FLAGSHIP_SHAPE, torch.float32, True),
-             (FLAGSHIP_SHAPE, torch.bfloat16, True),
-             ((2, 3, 37, 53, 3), torch.float32, False)]
-    summary = {}
-    for shape, dtype, timed in cases:
+    cases = [(MONO_FM_SHAPE, torch.float32, 2, True),
+             (MONO_FM_SHAPE, torch.bfloat16, 2, True),
+             (FLAGSHIP_SHAPE, torch.float32, 2, True),
+             (FLAGSHIP_SHAPE, torch.bfloat16, 2, True),
+             ((2, 3, 37, 53, 3), torch.float32, 1, False)]
+    cases += [(*case, False) for case in dict.fromkeys(path_cases)
+              if case not in [c[:3] for c in cases]]
+    summary, checked = {}, set()
+    for shape, dtype, n_id, timed in cases:
         t0 = time.perf_counter()
         B, K, H, W, C = shape
         target = torch.rand((B, H, W, C), generator=gen, device=dev).to(dtype)
@@ -319,7 +364,9 @@ def check_kernels(photometric, dev, seed):
         del out, idx, ref_out
 
         g = torch.rand((B, H, W), generator=gen, device=dev)
-        bwd_cases = {"pruned": ((tuple(range(K // 2, K))), False),
+        # "pruned": what the training step asks for, the warped candidates'
+        # gradients and none into the target
+        bwd_cases = {"pruned": (tuple(range(n_id, K)), False),
                      "full": (tuple(range(K)), True)}
         for label, (grad_ks, need_t) in bwd_cases.items():
             dt, dp = photometric.bwd_kernel(target, preds, g, ref_idx, grad_ks, need_t)
@@ -337,9 +384,10 @@ def check_kernels(photometric, dev, seed):
             if abs_err / scale > bwd_tol:
                 raise AssertionError(f"backward kernel disagrees with its plain version: {row}")
             del dt, dp, rdt, rdp
+        checked.add((shape, dtype, *bwd_cases["pruned"]))
 
         if timed:
-            grad_ks, need_t = bwd_cases["pruned"]  # what the training step asks for
+            grad_ks, need_t = bwd_cases["pruned"]
             itemsize = preds.element_size()
             row["fwd_ms"] = cuda_ms(lambda: photometric.fwd_kernel(target, preds), 20)
             row["fwd_plain_ms"] = cuda_ms(lambda: photometric.min_reprojection_plain(target, preds), 5)
@@ -353,8 +401,33 @@ def check_kernels(photometric, dev, seed):
             row["fwd_bound"] = fwd_bound(shape, itemsize)
             row["bwd_bound"] = bwd_bound(shape, itemsize, ref_idx, grad_ks, need_t)
             summary[shape, dtype] = row
-        phase("kernels", t0, **row)
-    return summary
+        phase("kernels", t0, timed=timed, **row)
+    return summary, checked
+
+
+@contextlib.contextmanager
+def slabs_within(checked, path):
+    """Records (shape, dtype, grad_ks, need_target_grad) of every fused
+    photometric call the model makes inside the block, and yields the set;
+    fails at the end if one of them is not in `checked`, the slabs that
+    check_kernels held against the plain version."""
+    from tripled_tpu_torch.models import net
+
+    fused, seen = net.fused_min_reprojection, set()
+
+    def recording(target, preds, grad_ks=None, need_target_grad=True):
+        ks = tuple(range(preds.shape[1])) if grad_ks is None else tuple(grad_ks)
+        seen.add((tuple(preds.shape), preds.dtype, ks, need_target_grad))
+        return fused(target, preds, grad_ks, need_target_grad)
+
+    net.fused_min_reprojection = recording
+    try:
+        yield seen
+    finally:
+        net.fused_min_reprojection = fused
+    if not seen or not seen <= checked:
+        raise AssertionError(f"{path}: photometric slabs {sorted(map(str, seen - checked))} "
+                             f"were not checked against the plain version (or none ran)")
 
 
 def check_probe_kernel(probe, dev, seed):
@@ -411,16 +484,22 @@ def reference_step(dev, seed, cfg, batch, height, width, spread=False, map_alpha
     the inputs carry map-pose masks and params. With `spread`, the card
     step runs twice and each metric's bound is widened by three times the
     card's own run-to-run spread (cuDNN's small steps are not
-    deterministic)."""
+    deterministic). The weights are drawn once, on the CPU as
+    `create_train_state` draws them, and each run starts from a copy."""
+    import copy
+
     from tripled_tpu_torch.config import OptimConfig
+    from tripled_tpu_torch.train.optim import Adam
     from tripled_tpu_torch.train.state import create_train_state
     from tripled_tpu_torch.train.step import make_train_step
     from tripled_tpu_torch.utils.inputs import random_train_inputs
 
+    optim_cfg = OptimConfig(warmup_iters=2)
+    fresh = create_train_state(cfg, optim_cfg, 100, seed=seed, device="cpu").model
     metrics = {}
     for label, device in [("cpu", "cpu"), ("card", dev)] + ([("card again", dev)] if spread else []):
-        state = create_train_state(cfg, OptimConfig(warmup_iters=2), 100, seed=seed, device=device)
-        step = make_train_step(state.model, state.optimizer)
+        model = copy.deepcopy(fresh).to(device)
+        step = make_train_step(model, Adam(model, optim_cfg, 100))
         inputs = random_train_inputs(batch, height, width, seed, device=device, **input_kw)
         if map_alphas:
             inputs.update(map_inputs(batch, height, width, map_alphas, seed, device))
@@ -493,7 +572,9 @@ def profile_step(step, batch, gen, photometric=True):
     with `photometric`, both photometric kernels must be among them."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # the device's activity alone: tracing the host's operators too gives the
+    # same device figures but costs 6-15 s a profile and slows the wall time
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(STEPS):
             step(batch, gen)
@@ -596,7 +677,8 @@ def train_path(photometric, dev, seed, model_cfg, data_cfg, optim_cfg, timed=Tru
                              pretext=torch.Generator().manual_seed(seed))
     batch = random_train_inputs(data_cfg.batch_size, model_cfg.height, model_cfg.width, seed,
                                 erase_count=data_cfg.erase_count,
-                                erase_shape=data_cfg.erase_shape, device=dev)
+                                erase_shape=data_cfg.erase_shape, device=dev,
+                                frame_ids=model_cfg.frame_ids)
     if state.model.cfg.map_pose:  # the preset's canonical config
         batch.update(map_inputs(data_cfg.batch_size, model_cfg.height, model_cfg.width,
                                 data_cfg.map_alphas, seed, dev))
@@ -1716,6 +1798,275 @@ def train_cli_diffnet_path(photometric, dev, tree, tmp):
     return out
 
 
+# the warp and kernel options, each on the small mono_fm step (R18, frozen
+# R18 extractor for the feature warp, 64x160, the pose net at 32x96, batch
+# 2, dropout off), card against CPU
+OPTIONS = {
+    "block_2x2": {"warp_block_gather": True},
+    "block_2x4": {"warp_block_gather": True, "warp_block_shape": (2, 4)},
+    "block_features": {"warp_block_gather": True, "warp_block_features": True},
+    "bf16_texels": {"warp_gather_dtype": "bfloat16"},
+    "align_corners_false": {"warp_align_corners": False},
+    "eqmask_pool": {"pool_eqmask_grad": True},
+    "unfused_photometric": {"use_pallas_photometric": False, "automask": False},
+}
+BENCH_WARM, BENCH_TIMED = 3, 5
+STEREO_IDS = (0, -1, 1, "s")
+STEREO_CLI_STEPS = 4
+
+
+def reference_options(photometric, dev, seed):
+    """Each option of OPTIONS on the small mono_fm step, on the card against
+    the CPU in float32, each metric's bound widened by the card's own
+    spread (reference_step); the photometric launches of the two card
+    steps: 4 each with the fused path, none without."""
+    from tripled_tpu_torch.config import ModelConfig
+
+    base = ModelConfig(name="mono_fm", depth_num_layers=18, pose_num_layers=18,
+                       extractor_num_layers=18, height=64, width=160, pose_height=32,
+                       pose_width=96, depth_dropout_rate=0.0)
+    out = {}
+    for name, fields in OPTIONS.items():
+        cfg = dataclasses.replace(base, **fields)
+        reset_launches(photometric)
+        row = reference_step(dev, seed, cfg, 2, 64, 160, spread=True)
+        want = 2 * len(cfg.scales) if cfg.use_pallas_photometric else 0
+        if photometric.launches != {"fwd": want, "bwd": want}:
+            raise AssertionError(f"{name}: photometric launches {photometric.launches}, "
+                                 f"expected {want} each over the two card steps")
+        out[name] = {"fields": fields, "launches": dict(photometric.launches), **row}
+    return out
+
+
+def state_bytes(state):
+    """Bytes of the tensors a train state holds: weights, buffers, the
+    gradients left by the last step and Adam's moments."""
+    model, opt = state.model, state.optimizer
+    tensors = [*model.parameters(), *model.buffers(),
+               *(p.grad for p in model.parameters() if p.grad is not None),
+               *(t for moments in (opt.mu, opt.nu) for ts in moments.values() for t in ts)]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bench_row(photometric, dev, seed, model_cfg, data_cfg, optim_cfg, variants, rounds=2):
+    """Per variant of `variants` (name -> model config fields: warp options
+    and the eq-mask pool, which add no parameter) a model built from its own
+    config, its weights loaded from the first's; BENCH_WARM warm-up steps
+    of the first, one of each other (the same shapes); then `rounds` alternating windows of BENCH_TIMED timed steps each, each
+    step ending in a scalar readback, as `bench.py` times. All variants
+    stay on the card, so that they compare within one process on one
+    batch. Checks len(scales) photometric launches of each kernel a step,
+    slabs in the compute dtype. Returns per variant its ms/step over all
+    its windows, each window's, images/s, peak memory less the other
+    variants' resident states, and launches."""
+    from tripled_tpu_torch.train.state import create_train_state
+    from tripled_tpu_torch.train.step import make_train_step
+    from tripled_tpu_torch.utils.inputs import random_train_inputs
+
+    states, steps = {}, {}
+    for name, fields in variants.items():
+        states[name] = create_train_state(dataclasses.replace(model_cfg, **fields), optim_cfg,
+                                          steps_per_epoch=100, seed=seed, device=dev)
+        states[name].model.load_state_dict(next(iter(states.values())).model.state_dict())
+        steps[name] = make_train_step(states[name].model, states[name].optimizer)
+    batch = random_train_inputs(data_cfg.batch_size, model_cfg.height, model_cfg.width, seed,
+                                erase_count=data_cfg.erase_count,
+                                erase_shape=data_cfg.erase_shape, device=dev,
+                                frame_ids=model_cfg.frame_ids)
+    gen = torch.Generator(dev).manual_seed(seed)
+    out = {name: {"fields": fields, "window_ms": [], "losses": []}
+           for name, fields in variants.items()}
+    for i, (name, step) in enumerate(steps.items()):  # the shapes are warm after the first
+        out[name]["warmup_losses"] = [float(step(batch, gen)["loss"])
+                                      for _ in range(BENCH_WARM if i == 0 else 1)]
+    resident = {name: state_bytes(state) for name, state in states.items()}
+    n = len(model_cfg.scales) * BENCH_TIMED
+    slab = "bfloat16" if model_cfg.compute_dtype == "bfloat16" else "float32"
+    for _ in range(rounds):
+        for name, step in steps.items():
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_launches(photometric)
+            t0 = time.perf_counter()
+            for _ in range(BENCH_TIMED):
+                out[name]["losses"].append(float(step(batch, gen)["loss"]))  # readback
+            out[name]["window_ms"].append((time.perf_counter() - t0) * 1e3 / BENCH_TIMED)
+            launches, by_dtype = dict(photometric.launches), dict(photometric.launches_by_dtype)
+            if launches != {"fwd": n, "bwd": n} or by_dtype != {f"fwd {slab}": n,
+                                                                 f"bwd {slab}": n}:
+                raise AssertionError(f"{name}: launches {launches} {by_dtype}, expected {n} "
+                                     f"each, {slab} slabs")
+            others = sum(b for other, b in resident.items() if other != name)
+            out[name].update(
+                launches=launches, launches_by_dtype=by_dtype,
+                photometric_launches_per_step={k: v / BENCH_TIMED for k, v in launches.items()},
+                peak_memory_gib=max(out[name].get("peak_memory_gib", 0),
+                                    (torch.cuda.max_memory_allocated(dev) - others) / 2**30))
+    for name, row in out.items():
+        if not all(math.isfinite(v) for v in row["warmup_losses"] + row["losses"]):
+            raise AssertionError(f"{name}: non-finite losses {row}")
+        row["ms_per_step"] = sum(row["window_ms"]) / len(row["window_ms"])
+        row["images_per_s"] = data_cfg.batch_size * 1e3 / row["ms_per_step"]
+        row["resident_state_gib"] = resident[name] / 2**30
+    del states, steps, batch, gen
+    torch.cuda.empty_cache()
+    return out
+
+
+def eqmask_pool_times(dev, shape, dtype):
+    """ms of one forward and backward of the 5x5 max pool at `shape` (NCHW),
+    with the eq-mask backward and with F.max_pool2d's."""
+    from tripled_tpu_torch.models.layers import max_pool_5x5_same, max_pool_5x5_same_eqmask
+
+    gen = torch.Generator(dev).manual_seed(0)
+    x = torch.floor(torch.rand(shape, device=dev, generator=gen) * 16).to(dtype)
+    g = torch.randn(shape, device=dev, generator=gen).to(dtype)
+    out = {}
+    for name, pool in (("eqmask", max_pool_5x5_same_eqmask), ("max_pool2d", max_pool_5x5_same)):
+        xi = x.clone().requires_grad_()
+
+        def run():
+            xi.grad = None
+            pool(xi).backward(g)
+
+        out[f"{name}_ms"] = cuda_ms(run, iters=10)
+    return out
+
+
+def bench_row_presets():
+    """`bench.py`'s two default rows: row name -> (model, data, optim)
+    configs, and the variants bench_row times beside the default."""
+    from tripled_tpu_torch.presets import mono_fm_r50_192x640, tripled_r50_320x1024
+
+    exact = {"warp_block_gather": False, "warp_gather_dtype": "float32"}
+    return {"mono_fm_r50_192x640": (mono_fm_r50_192x640(), {
+                "default": {}, "exact_warp": exact, "eqmask_pool": {"pool_eqmask_grad": True}}),
+            "tripled_r50_320x1024": (tripled_r50_320x1024(), {
+                "default": {}, "exact_warp": exact})}
+
+
+def stereo_config():
+    """Mono+stereo frame ids (0, -1, 1, "s") with `configs/_common.py`'s
+    stereo values (automask and disp_norm off) at `mono_fm_bench()`'s
+    widths, float32."""
+    from tripled_tpu_torch.presets import mono_fm_bench
+
+    model_cfg, data_cfg, optim_cfg = mono_fm_bench()
+    return (dataclasses.replace(model_cfg, frame_ids=STEREO_IDS, automask=False,
+                                disp_norm=False), data_cfg, optim_cfg)
+
+
+def bench_rows_phase(photometric, dev, seed, checked):
+    """Phase bench_rows: each row of bench_row_presets beside its variants
+    in alternating windows (bench_row), its slabs among `checked`; and the
+    eq-mask pool alone at the headline's largest CRP shape. Returns the
+    rows and the launches by path."""
+    launches, rows = {}, {}
+    for row, ((model_cfg, data_cfg, optim_cfg), variants) in bench_row_presets().items():
+        t0 = time.perf_counter()
+        with slabs_within(checked, f"bench_rows {row}"):
+            timed = bench_row(photometric, dev, seed, model_cfg, data_cfg, optim_cfg, variants)
+        rows[row] = {"batch": data_cfg.batch_size, "height": model_cfg.height,
+                     "width": model_cfg.width, "compute_dtype": model_cfg.compute_dtype,
+                     "remat": model_cfg.remat, "warp_block_shape": model_cfg.warp_block_shape,
+                     **timed, "seconds": time.perf_counter() - t0}
+        for name in variants:
+            launches[f"bench_rows {row} {name}"] = rows[row][name]["launches"]
+    shape = (16, 256, 48, 160)  # the headline's level-1 CRP block, bf16
+    rows["pool_alone"] = {"shape": list(shape), "dtype": "bfloat16",
+                          **eqmask_pool_times(dev, shape, torch.bfloat16)}
+    return rows, launches
+
+
+def stereo_phase(photometric, dev, seed, checked):
+    """Phase stereo: stereo_config() from random weights: 1 warm-up and
+    STEPS timed steps; 4 launches a step, each over K = 3 warped candidates
+    (no identity ones), slabs among `checked`."""
+    model_cfg, data_cfg, optim_cfg = stereo_config()
+    with slabs_within(checked, "stereo") as seen:
+        state, step, batch, gen, info = train_path(photometric, dev, seed, model_cfg, data_cfg,
+                                                   optim_cfg)
+    candidates = {shape[1] for shape, *_ in seen}
+    if candidates != {3} or "stereo_T" not in batch:
+        raise AssertionError(f"candidates per call {candidates}, batch keys {sorted(batch)}")
+    del state, step, batch, gen
+    torch.cuda.empty_cache()
+    info["candidates_per_call"] = 3
+    return info
+
+
+STEREO_CLI_CONFIG = """
+import dataclasses
+
+from tripled_tpu_torch.configs._common import kitti_experiment
+
+config = kitti_experiment("mono_fm", depth_layers=50, pose_layers=18, extractor_layers=50,
+                          frame_ids={frame_ids!r}, height=192, width=640, batch_size=12,
+                          split="synthetic", total_epochs=1, perception_weight=1e-3,
+                          smoothness_weight=1e-3, work_dir={work!r})
+config = dataclasses.replace(
+    config, data=dataclasses.replace(config.data, in_path={root!r}, gt_depth_path={gt!r}),
+    log_interval=1)
+"""
+
+
+def train_cli_stereo_path(photometric, dev, tree, tmp, checked):
+    """The train CLI on a mono+stereo config through `configs/_common.py`
+    (mono_fm at its bench widths, frame ids (0, -1, 1, "s"): automask and
+    disp_norm off, stereo_scale on) for 1 epoch of STEREO_CLI_STEPS steps
+    with its eval hook on `tree`, whose image_03 is each frame's opposite
+    view; then
+    `cli.eval_depth` on the checkpoint, which reads stereo_scale and must
+    give the hook's metrics."""
+    from tripled_tpu_torch.cli import eval_depth, train
+    from tripled_tpu_torch.config import load_config
+    from tripled_tpu_torch.eval.depth_metrics import METRIC_NAMES
+
+    work = os.path.join(tmp, "work_stereo")
+    config = os.path.join(tmp, "stereo.py")
+    with open(config, "w") as f:
+        f.write(STEREO_CLI_CONFIG.format(frame_ids=STEREO_IDS, work=work, root=tree["root"],
+                                         gt=tree["gt_depth_path"]))
+    cfg = load_config(config)
+    if not (cfg.data.stereo_scale and not cfg.model.automask and not cfg.model.disp_norm):
+        raise AssertionError(f"not the stereo config values: {cfg}")
+    steps = min((tree["num_frames"] - 2) // cfg.data.batch_size, STEREO_CLI_STEPS)
+    reset_launches(photometric)
+    with env_vars(TRIPLED_SPLITS_DIR=tree["splits_dir"]):
+        t0 = time.perf_counter()
+        with slabs_within(checked, "train_cli_stereo"):
+            state, history = train.main(["--config", config, "--device", str(dev),
+                                         "--max_steps_per_epoch", str(STEREO_CLI_STEPS)])
+        run_s = time.perf_counter() - t0
+        count = state.optimizer.count
+        del state
+        launches = dict(photometric.launches)
+        t1 = time.perf_counter()
+        evaluated = eval_depth.main(["--config", config, "--checkpoint",
+                                     os.path.join(work, "ckpt", "epoch_1"), "--device", str(dev)])
+        eval_s = time.perf_counter() - t1
+    torch.cuda.empty_cache()
+    with open(os.path.join(work, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    train_rows = [r for r in rows if "train/loss" in r]
+    per_step = len(cfg.model.scales)
+    if count != steps or launches != {"fwd": per_step * steps, "bwd": per_step * steps}:
+        raise AssertionError(f"{count} steps, launches {launches}; expected {steps} steps")
+    hook = history[-1]
+    diff = {k: abs(evaluated[k] - hook[k]) for k in METRIC_NAMES}
+    if max(diff.values()) > 1e-6 or not all(math.isfinite(hook[k]) for k in METRIC_NAMES):
+        raise AssertionError(f"eval CLI {evaluated} disagrees with the hook {hook}")
+    step_ms = step_times(train_rows, steps)
+    ms = sum(step_ms) / len(step_ms)
+    return {"config": "configs/_common.py kitti_experiment('mono_fm', frame ids (0, -1, 1, "
+            "'s'), R50/R18/R50, 192x640, batch 12, f32)", "steps": steps, "run_seconds": run_s,
+            "ms_per_step": ms, "images_per_s": cfg.data.batch_size / (ms / 1e3),
+            "first_step_losses": {k[len("train/"):]: v for k, v in train_rows[0].items()
+                                  if k.startswith("train/")},
+            "stereo_scale": cfg.data.stereo_scale, "eval_hook": {k: hook[k] for k in METRIC_NAMES},
+            "eval_cli_seconds": eval_s, "eval_cli_max_abs_diff": max(diff.values()),
+            "launches": launches}
+
+
 # segmentation: the port's copy of the shipped config, whose model config
 # gives the encoders (R50 depth, R50 extractor) and whose data the size
 # (192x640, batch 12); the three models of `models/segmentation.py`
@@ -2040,7 +2391,10 @@ def main():
           ptxas=ptxas, fwd_dynamic_smem_bytes_c3=lib.photometric_fwd_smem(C),
           bwd_dynamic_smem_bytes_c3=bwd_smem)
 
-    kern = check_kernels(photometric, dev, args.seed)
+    # the slabs of the full-width paths that check theirs with slabs_within
+    path_cases = [slab_case(*cfgs[:2]) for cfgs, _ in bench_row_presets().values()]
+    path_cases.append(slab_case(*stereo_config()[:2]))
+    kern, checked = check_kernels(photometric, dev, args.seed, path_cases)
     probe_rows = check_probe_kernel(probe, dev, args.seed)
 
     t0 = time.perf_counter()
@@ -2101,6 +2455,21 @@ def main():
                         **pretext_phases(photometric, dev, args.seed, card),
                         **segmentation_phases(photometric, dev, args.seed, card),
                         **variants_phases(photometric, dev, args.seed, card)}
+
+    t0 = time.perf_counter()
+    phase("options_reference", t0, tolerance=REFERENCE_TOL["float32"],
+          bound="3 x the card's run-to-run spread + tolerance x |cpu|",
+          options=reference_options(photometric, dev, args.seed))
+    t0 = time.perf_counter()
+    bench, bench_launches = bench_rows_phase(photometric, dev, args.seed, checked)
+    launches_by_path.update(bench_launches)
+    phase("bench_rows", t0, card=card, warmup_steps=BENCH_WARM, timed_steps=BENCH_TIMED,
+          rows=bench)
+    t0 = time.perf_counter()
+    stereo = stereo_phase(photometric, dev, args.seed, checked)
+    launches_by_path["stereo"] = stereo["launches"]
+    phase("stereo", t0, card=card, config="mono_fm_bench() with frame ids (0, -1, 1, 's'), "
+          "automask and disp_norm off: R50/R18/R50 192x640 batch 12 f32", **stereo)
 
     with tempfile.TemporaryDirectory(prefix="train_cli_") as tmp:
         t0 = time.perf_counter()
@@ -2166,6 +2535,10 @@ def main():
         diffnet_cli = train_cli_diffnet_path(photometric, dev, tree, tmp)
         launches_by_path["train_cli_diffnet"] = diffnet_cli["launches"]
         phase("train_cli_diffnet", t0, card=card, **diffnet_cli)
+        t0 = time.perf_counter()
+        stereo_cli = train_cli_stereo_path(photometric, dev, tree, tmp, checked)
+        launches_by_path["train_cli_stereo"] = stereo_cli["launches"]
+        phase("train_cli_stereo", t0, card=card, **stereo_cli)
 
     with tempfile.TemporaryDirectory(prefix="train_cli_segmentation_") as tmp:
         t0 = time.perf_counter()

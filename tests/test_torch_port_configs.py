@@ -3,8 +3,9 @@
 `configs/X.py` through the JAX one, for all 19 configs (the segmentation
 config's model is the depth model whose encoders the segmentation models
 take). Every DataConfig, OptimConfig and top-level ExperimentConfig
-field is equal, and so is every field of the port's ModelConfig, before
-and after each package's `canonicalize`; so are the segmentation config's
+field is equal, and so is every field of ModelConfig, whose field lists
+are equal (names, order and defaults), before and after each package's
+`canonicalize`; `dump_config` writes the same text; so are the segmentation config's
 `SEGMENTATION_MODEL` and `NUM_CLASSES`. The LR schedule is held against
 the JAX optimizer's to 1e-6 relative.
 
@@ -68,10 +69,24 @@ def _assert_same(jax_cfg, port_cfg):
         if f not in ("model", "data", "optim"):
             assert getattr(jax_cfg, f) == getattr(port_cfg, f), f
     assert _fields(jax_cfg) == _fields(port_cfg)
+    assert _fields(jax_cfg.model) == _fields(port_cfg.model)
     for j, p in [(jax_cfg.model, port_cfg.model),
                  (jax_canonicalize(jax_cfg.model), port_canonicalize(port_cfg.model))]:
-        for f in _fields(p):
+        for f in _fields(j):
             assert getattr(j, f) == getattr(p, f), f"model.{f}"
+
+
+WARP_AND_KERNEL_OPTIONS = ("warp_align_corners", "warp_gather_dtype", "warp_block_gather",
+                           "warp_block_shape", "warp_block_features", "use_pallas_photometric",
+                           "pool_eqmask_grad")
+
+
+def test_model_config_fields_are_the_jax_fields():
+    """Names, order and defaults; the seven warp and kernel options among them."""
+    jax_fields = [(f.name, f.default) for f in dataclasses.fields(jax_config.ModelConfig)]
+    port_fields = [(f.name, f.default) for f in dataclasses.fields(port_config.ModelConfig)]
+    assert port_fields == jax_fields
+    assert set(WARP_AND_KERNEL_OPTIONS) <= {name for name, _ in port_fields}
 
 
 @pytest.mark.parametrize("name", CONFIGS)
@@ -141,6 +156,39 @@ def test_dump_config_round_trip(name, tmp_path):
     # the JAX package writes the same text for the same fields
     jax_path = tmp_path / "jax_dump.py"
     jax_config.dump_config(_load_jax(name), str(jax_path))
-    jd = ast.literal_eval(jax_path.read_text())
-    assert {k: v for k, v in jd.items() if k != "model"} == \
-        {k: v for k, v in dataclasses.asdict(cfg).items() if k != "model"}
+    assert path.read_text() == jax_path.read_text()
+    for option in WARP_AND_KERNEL_OPTIONS:
+        assert f"'{option}':" in path.read_text()
+
+
+BENCH_ENV = ("BENCH_PALLAS", "BENCH_REMAT", "BENCH_BF16", "BENCH_BF16_WARP", "BENCH_BLOCK_WARP",
+             "BENCH_BLOCK_SHAPE", "BENCH_BLOCK_FEATURES", "BENCH_EQPOOL", "BENCH_FLAGSHIP_REMAT",
+             "TRIPLED_WARP_PAD64_CAP")
+
+
+@pytest.mark.parametrize("row", ["mono_fm_r50_192x640", "tripled_r50_320x1024"])
+def test_bench_row_presets_are_bench_py_defaults(row, monkeypatch):
+    """The port's two bench-row presets are `bench.py`'s `mono_fm_cfg()` and
+    `flagship_cfg()` at its environment defaults, field for field after
+    canonicalize, at BENCH_BATCH's 16 and the bf16 flagship batch of 8
+    (`bench.py:478`, `:552`)."""
+    import importlib.util
+
+    from tripled_tpu_torch import presets
+
+    # unset, and restored after the test even where it was unset before:
+    # flagship_cfg() sets TRIPLED_WARP_PAD64_CAP with os.environ.setdefault
+    for name in BENCH_ENV:
+        monkeypatch.setenv(name, "")
+        monkeypatch.delenv(name)
+    spec = importlib.util.spec_from_file_location("_bench", REPO / "bench.py")
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    want = jax_canonicalize(bench.mono_fm_cfg() if row == "mono_fm_r50_192x640"
+                            else bench.flagship_cfg())
+    model, data, _ = getattr(presets, row)()
+    for f in _fields(want):
+        assert getattr(model, f) == getattr(want, f), f
+    assert model.warp_block_gather and model.warp_gather_dtype == "bfloat16"
+    assert model.compute_dtype == "bfloat16"
+    assert data.batch_size == (16 if row == "mono_fm_r50_192x640" else 8)

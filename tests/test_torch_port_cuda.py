@@ -43,6 +43,19 @@ extractor, the grayscale head on Lab L) and `_sep_colorize` (the separate
 colorize encoder and decoder), each from the port's copy of its config
 cut to R18, 64x160, the pose net at 32x96, batch 2, 4 erased 8x8 squares.
 
+The warp and kernel options on the card against the CPU in float32: the
+block warp in (2, 2) and (2, 4) blocks and the bf16 texels on wild flow
+(over 10% of the samples clamp), values within 1e-5 of the largest and
+the gradients into image and coordinates within 1e-4 of their norms
+(F.grid_sample's backward adds with atomics on the card); the eq-mask
+pool's backward on plateaus, within 1e-6 of the largest (exact
+comparisons, and the same adds and true divides in the same order on both
+devices). The unfused photometric path launches no kernel, the fused one
+4 forward and 4 backward launches a step (one each a scale). The small
+flagship with the stereo frame (frame ids 0, -1, 1, "s", automask and
+disp_norm off) on the card against the CPU, bounded as the distillation
+steps.
+
 The colour conversions (`ops/color.py`) on the card against the CPU in
 float32: within 2e-6 of the output's largest magnitude, the bound the port
 holds against the JAX package (tests/test_torch_port_color.py). The divides
@@ -664,3 +677,103 @@ def test_variant_layer_on_the_card_matches_the_cpu(name, cuda_device):
         assert (a - b).abs().max().item() <= out_tol * b.abs().max().item(), name
     for a, b in zip(gin_card + gp_card, gin_cpu + gp_cpu):
         assert (a - b).norm().item() <= grad_tol * b.norm().item(), name
+
+
+def _wild(b, h, w, seed):
+    g = torch.Generator().manual_seed(seed)
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32),
+                            torch.arange(w, dtype=torch.float32), indexing="ij")
+    return torch.stack([xs + torch.randn(b, h, w, generator=g) * 2.5,
+                        ys + torch.randn(b, h, w, generator=g) * 2.5], -1) - 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["block_2x2", "block_2x4", "block_2x2_64ch", "bf16_exact",
+                                  "bf16_block_2x2"])
+def test_warp_option_on_the_card_matches_the_cpu(case, cuda_device):
+    from tripled_tpu_torch.ops.warp import grid_sample, grid_sample_block
+
+    c = 64 if case.endswith("64ch") else 3
+    gd = torch.bfloat16 if case.startswith("bf16") else None
+    block = (2, 4) if case == "block_2x4" else (2, 2)
+    img = torch.rand(2, 48, 64, c, generator=torch.Generator().manual_seed(0))
+    coords = _wild(2, 48, 64, 1)
+    gout = torch.randn(2, 48, 64, c, generator=torch.Generator().manual_seed(2))
+    runs = []
+    for device in ("cpu", cuda_device):
+        i = img.detach().to(device).requires_grad_()
+        cc = coords.detach().to(device).requires_grad_()
+        out = (grid_sample(i, cc, gather_dtype=gd) if case == "bf16_exact"
+               else grid_sample_block(i, cc, gather_dtype=gd, block=block))
+        (out * gout.to(device)).sum().backward()
+        runs.append([t.detach().cpu() for t in (out, i.grad, cc.grad)])
+    (out_cpu, gi_cpu, gc_cpu), (out_card, gi_card, gc_card) = runs
+    assert (out_card - out_cpu).abs().max() <= 1e-5 * out_cpu.abs().max(), case
+    for a, b in ((gi_card, gi_cpu), (gc_card, gc_cpu)):
+        assert (a - b).norm() <= 1e-4 * b.norm(), case
+    if case != "bf16_exact":
+        exact = grid_sample(img, coords, gather_dtype=gd)
+        assert ((out_cpu - exact).abs().amax(-1) > 1e-6).float().mean() > 0.1
+
+
+@pytest.mark.cuda
+def test_eqmask_pool_on_the_card_matches_the_cpu(cuda_device):
+    from tripled_tpu_torch.models.layers import max_pool_5x5_same_eqmask
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.floor(torch.rand(2, 16, 24, 40, generator=g) * 4) / 4  # plateaus
+    gout = torch.randn(2, 16, 24, 40, generator=g)
+    runs = []
+    for device in ("cpu", cuda_device):
+        xi = x.detach().to(device).requires_grad_()
+        y = max_pool_5x5_same_eqmask(xi)
+        (y * gout.to(device)).sum().backward()
+        runs.append((y.detach().cpu(), xi.grad.cpu()))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert (runs[0][1] - runs[1][1]).abs().max() <= 1e-6 * runs[0][1].abs().max()
+
+
+def _small_option_step(device, **fields):
+    """One step of the small flagship with `fields`, from seed 0 (inputs
+    with stereo_T where the frame ids hold "s")."""
+    from tripled_tpu_torch.config import ModelConfig, OptimConfig
+    from tripled_tpu_torch.train.state import create_train_state
+    from tripled_tpu_torch.train.step import make_train_step
+    from tripled_tpu_torch.utils.inputs import random_train_inputs
+
+    cfg = ModelConfig(**{**SMALL_FLAGSHIP, "depth_dropout_rate": 0.0, **fields})
+    state = create_train_state(cfg, OptimConfig(warmup_iters=2), 100, seed=0, device=device)
+    batch = random_train_inputs(2, 64, 160, seed=0, erase_count=4, erase_shape=(8, 8),
+                                device=device, frame_ids=cfg.frame_ids)
+    gen = torch.Generator(device).manual_seed(1)
+    metrics = make_train_step(state.model, state.optimizer)(batch, None, None, gen)
+    return {k: float(v) for k, v in metrics.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, False])
+def test_photometric_launches_follow_the_option(fused, cuda_device):
+    for k in photometric.launches:
+        photometric.launches[k] = 0
+    metrics = _small_option_step(cuda_device, use_pallas_photometric=fused)
+    assert all(math.isfinite(v) for v in metrics.values())
+    want = 4 if fused else 0
+    assert photometric.launches == {"fwd": want, "bwd": want}
+
+
+@pytest.mark.cuda
+def test_stereo_step_on_the_card_matches_the_cpu(cuda_device, monkeypatch):
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    stereo = dict(frame_ids=(0, -1, 1, "s"), automask=False, disp_norm=False)
+    for k in photometric.launches:
+        photometric.launches[k] = 0
+    gpu = _small_option_step(cuda_device, **stereo)
+    assert photometric.launches == {"fwd": 4, "bwd": 4}
+    again = _small_option_step(cuda_device, **stereo)
+    cpu = _small_option_step("cpu", **stereo)
+    assert set(gpu) == set(cpu) == set(again)
+    for k in cpu:
+        assert math.isfinite(gpu[k])
+        spread = abs(again[k] - gpu[k])
+        assert abs(gpu[k] - cpu[k]) <= 3 * spread + 1e-4 * abs(cpu[k]), (k, gpu[k], cpu[k])

@@ -1,9 +1,10 @@
 """The port's numpy evaluation modules against the JAX package's, on the
 same float64 inputs from a numpy seed: `tools/*`, `eval/pose.py`,
 `eval/odometry.py`, `data/kitti_utils.py`, `eval/make3d.py`,
-`KITTIRawDataset.get_depth` and `get_pose`, `KITTIDepthDataset`, and the
-refusal of the stereo frame. About 14 s on one CPU worker (pytest's
-seconds, the plot suite most of it).
+`KITTIRawDataset.get_depth` and `get_pose`, `KITTIDepthDataset`; and the
+stereo frame, whose `stereo_T` the datasets and `random_train_inputs`
+give, through a model's training forward. About 20 s on one CPU worker
+(pytest's seconds, the plot suite most of it).
 
 Tolerance: the port's modules are copies of the JAX package's plain numpy,
 so every value is held equal (`assert_array_equal`), and every file the
@@ -415,7 +416,54 @@ def test_make3d_matches_jax(tmp_path):
 # ---------------------------------------------------------- stereo frame
 
 
-def test_stereo_frame_is_refused():
-    with pytest.raises(ValueError, match="'s' in frame_ids waits for a later slice of the port"):
-        ModelConfig(frame_ids=(0, -1, 1, "s"))
-    ModelConfig(frame_ids=(0, -1, 1))
+STEREO_IDS = (0, -1, 1, "s")
+
+
+def _stereo_batch(source, tmp_path, monkeypatch):
+    """Two samples with frame ids (0, -1, 1, "s") at 64x160: from
+    `random_train_inputs`, or from a `KITTIRawDataset` over the synthetic
+    tree (its image_03 the left frames' opposite view), a left and a right
+    line."""
+    from tripled_tpu_torch.utils.inputs import random_train_inputs
+
+    if source == "random_train_inputs":
+        return random_train_inputs(2, 64, 160, seed=3, device="cpu", frame_ids=STEREO_IDS)
+    monkeypatch.setenv("TRIPLED_NATIVE_LOADER", "0")
+    tree = make_kitti_tree(str(tmp_path / "kitti"), num_frames=4, height=48, width=160)
+    ds = datasets.KITTIRawDataset(data_path=tree["root"], height=64, width=160,
+                                  filenames=[f"{tree['scene']} 1 l", f"{tree['scene']} 2 r"],
+                                  frame_ids=STEREO_IDS, is_train=True, img_ext=".png")
+    rng = np.random.RandomState(0)
+    samples = [ds.sample(i, rng) for i in range(2)]
+    return {k: torch.from_numpy(np.stack([s[k] for s in samples]))
+            for k in ("color", "color_aug", "K", "inv_K", "stereo_T")}
+
+
+@pytest.mark.parametrize("source", ["random_train_inputs", "kitti_raw_sample"])
+def test_stereo_frame_model_forward_and_loss_run(source, tmp_path, monkeypatch):
+    """`ModelConfig(frame_ids=(0, -1, 1, "s"))` builds; its model's training
+    forward predicts the two temporal poses and warps the stereo view by
+    stereo_T (0.015 in x, its sign the side's times the flip's): the loss
+    is finite and moves with stereo_T."""
+    from tripled_tpu_torch.models.net import TripleDNet
+
+    cfg = ModelConfig(name="mono_baseline", depth_num_layers=18, pose_num_layers=18,
+                      frame_ids=STEREO_IDS, height=64, width=160, pose_height=64,
+                      pose_width=160, scales=(0,), depth_dropout_rate=0.0,
+                      automask=False, disp_norm=False)  # configs/_common.py's stereo values
+    batch = _stereo_batch(source, tmp_path, monkeypatch)
+    assert batch["color"].shape == (2, 4, 64, 160, 3)
+    assert batch["stereo_T"].shape == (2, 4, 4)
+    np.testing.assert_array_equal(batch["stereo_T"][:, 0, 3].abs().numpy(), np.float32([0.015] * 2))
+    torch.manual_seed(0)
+    model = TripleDNet(cfg).train()
+    outputs, losses = model(batch)
+    assert sorted(outputs["cam_T_cam"]) == [1, 2]
+    total = sum(losses.values())
+    assert torch.isfinite(total)
+    total.backward()
+    far = dict(batch, stereo_T=batch["stereo_T"].clone())
+    far["stereo_T"][:, 0, 3] *= 20
+    with torch.no_grad():
+        moved = model(far)[1]["min_reconstruct_loss/0"]
+    assert moved.item() != losses["min_reconstruct_loss/0"].item()

@@ -1,16 +1,16 @@
-"""Frozen configuration dataclasses (`tripled_tpu/config.py`): the fields
-of the JAX package's `ModelConfig` that the training steps of all 16 MONO
-presets read (the map-pose, equivariant and rotation-pretext fields
-included), with every architecture option (the attention and 1x1
-disentangle skips, the 1x1 colour skips, `use_pfp`, the pixel-shuffle
-depth decoder, HR-Depth and DIFFNet), and every field of `DataConfig`,
-`OptimConfig` and `ExperimentConfig`, with the same defaults. The pretext
-presets (`presets.PRETEXT_PRESETS`) and the architecture options take only
-float32. Not here yet: the warp and kernel options (`warp_align_corners`,
-`warp_gather_dtype`, `warp_block_gather`, `warp_block_shape`,
-`warp_block_features`, `use_pallas_photometric`, `pool_eqmask_grad`).
-Experiment configs are python files defining `config`
-(`tripled_tpu_torch/configs/`), read with `load_config`."""
+"""Frozen configuration dataclasses (`tripled_tpu/config.py`): every field
+of the JAX package's `ModelConfig`, `DataConfig`, `OptimConfig` and
+`ExperimentConfig`, in the same order and with the same defaults: the
+fields of all 16 MONO presets (the map-pose, equivariant and
+rotation-pretext fields included), every architecture option (the
+attention and 1x1 disentangle skips, the 1x1 colour skips, `use_pfp`, the
+pixel-shuffle depth decoder, HR-Depth and DIFFNet), the warp and kernel
+options (the block warp, the gather dtype, the warp's align-corners
+convention, the photometric path, the eq-mask pool) and the stereo frame
+"s" in `frame_ids`. The pretext presets (`presets.PRETEXT_PRESETS`) and
+the architecture options take only float32. Experiment configs are python
+files defining `config` (`tripled_tpu_torch/configs/`), read with
+`load_config`."""
 
 from __future__ import annotations
 
@@ -119,29 +119,68 @@ class ModelConfig:
     # dropout on the two deepest skips of the CRP DepthDecoder; 0.0 for
     # deterministic parity runs
     depth_dropout_rate: float = 0.5
-    # recompute the encoders' and the depth, image and colour decoders'
-    # activations in the backward instead of keeping them (less memory, more
-    # arithmetic, the same numbers)
-    remat: bool = False
+
+    # the warp's sampling convention. True samples at the pixel
+    # coordinates themselves; False at x * W/(W-1) - 0.5 (and the same in
+    # y), what the reference's (W-1, H-1) normalisation gives under
+    # F.grid_sample's default align_corners=False (`models/net.py`
+    # `_grid_sample`)
+    warp_align_corners: bool = True
     # "bfloat16": mixed precision. The networks fed bf16 inputs compute in
     # bf16 on bf16-rounded parameters; warps, geometry, the losses'
     # reductions, BatchNorm statistics, master parameters and Adam's moments
     # stay float32 (`models/net.py` `_cd`/`_f32`, `train/step.py`)
     compute_dtype: str = "float32"
+    # "bfloat16": the warp's texels are rounded to bf16 before the
+    # interpolation, which stays in the wider dtype (`ops/warp.py`)
+    warp_gather_dtype: str = "float32"
+    # the block warp: each warp_block_shape block of output pixels samples
+    # inside one (bh+2) x (bw+2) source patch, a sample beyond it clamped
+    # to its edge (`ops/warp.grid_sample_block`). Equal to the exact warp
+    # except where a block's samples spread wider (depth
+    # discontinuities); opt-in
+    warp_block_gather: bool = False
+    # (bh, bw) of the block warp on the colour warp (at most 4 channels)
+    warp_block_shape: tuple = (2, 2)
+    # the block warp also on the 64-channel half-resolution feature warp,
+    # always in (2, 2) blocks
+    warp_block_features: bool = False
+    # the fused photometric path (the name is the JAX package's, whose
+    # kernel is Pallas): the CUDA kernels `ops/photometric.py` on a CUDA
+    # tensor and their plain version on the CPU, an exact tie going to the
+    # identity candidates. False: the unfused path, each candidate's
+    # reprojection loss and `ops/losses.min_reprojection_with_automask`,
+    # with the 1e-5 tie-break noise on the identity losses in training
+    use_pallas_photometric: bool = True
+    # the CRP decoder's 5x5 max pools route an exact tie's gradient to
+    # every tied position, divided among them, instead of to one
+    # (`models/layers.max_pool_5x5_same_eqmask`); opt-in
+    pool_eqmask_grad: bool = False
+    # recompute the encoders' and the depth, image and colour decoders'
+    # activations in the backward instead of keeping them (less memory, more
+    # arithmetic, the same numbers)
+    remat: bool = False
 
     def __post_init__(self):
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype must be 'float32' or 'bfloat16', "
                              f"got {self.compute_dtype!r}")
-        later = "a later slice of the port"
-        if "s" in self.frame_ids:
-            raise ValueError(f"'s' in frame_ids waits for {later}")
-        from tripled_tpu_torch.presets import PRETEXT_PRESETS  # presets imports this module
-        if self.compute_dtype == "bfloat16" and self.name in PRETEXT_PRESETS:
-            raise ValueError(f"compute_dtype='bfloat16' for {self.name!r} waits for {later}")
-        if self.compute_dtype == "bfloat16" and self.architecture_options():
-            raise ValueError(f"compute_dtype='bfloat16' with {self.architecture_options()} "
-                             f"waits for {later}")
+        # a list becomes a tuple; the JAX package's check and message
+        bs = tuple(self.warp_block_shape)
+        if len(bs) != 2 or not all(isinstance(v, int) and v >= 1 for v in bs):
+            raise ValueError(f"warp_block_shape must be two positive ints, got "
+                             f"{self.warp_block_shape!r}")
+        object.__setattr__(self, "warp_block_shape", bs)
+        if self.compute_dtype == "bfloat16":
+            later = "a later slice of the port"
+            # imported here, and only for bf16: presets imports this module,
+            # whose ExperimentConfig builds a default ModelConfig at import
+            from tripled_tpu_torch.presets import PRETEXT_PRESETS
+            if self.name in PRETEXT_PRESETS:
+                raise ValueError(f"compute_dtype='bfloat16' for {self.name!r} waits for {later}")
+            if self.architecture_options():
+                raise ValueError(f"compute_dtype='bfloat16' with {self.architecture_options()} "
+                                 f"waits for {later}")
 
     def architecture_options(self) -> list[str]:
         """The architecture options this config sets off their defaults."""

@@ -102,8 +102,10 @@ class Autoencoder(nn.Module):
         self.encoder = Extractor(cfg.extractor_num_layers, remat=cfg.remat)
         self.decoder = ImageDecoder(self.encoder.num_ch_enc[4], 3, remat=cfg.remat)
 
-    def forward(self, inputs: Dict[str, torch.Tensor], generator=None, pretext=None):
-        """`generator` and `pretext` are unused (the steps' signature)."""
+    def forward(self, inputs: Dict[str, torch.Tensor], generator=None, pretext=None,
+                automask=None):
+        """`generator`, `pretext` and `automask` are unused (the steps'
+        signature)."""
         c = self.cfg
         target = inputs["color"][:, 0]
         enc_in = target * inputs["mask"] if self.masked else target
@@ -137,9 +139,10 @@ class RotNet(nn.Module):
         self.encoder = Extractor(cfg.extractor_num_layers, remat=cfg.remat)
         self.head = Dense(self.encoder.num_ch_enc[4], cfg.pretext_label_size)
 
-    def forward(self, inputs: Dict[str, torch.Tensor], generator=None, pretext=None):
+    def forward(self, inputs: Dict[str, torch.Tensor], generator=None, pretext=None,
+                automask=None):
         """`pretext` (a CPU torch.Generator) draws the crop and rotations;
-        `generator` is unused (the steps' signature)."""
+        `generator` and `automask` are unused (the steps' signature)."""
         c = self.cfg
         target = inputs["color"][:, 0]
         b, h, w, _ = target.shape

@@ -3,7 +3,9 @@
 Per level: 1x1 reduce, 3x3 iconv over cat(reduce, up(prev), prev_disp),
 leaky ReLU, CRP x4, 3x3 merge, leaky ReLU, 2x nearest upsample (or with
 `use_shuffle` a pixel shuffle, `layers.UpShuffle`), sigmoid disparity
-head. Dropout on the two deepest encoder stages in training.
+head. Dropout on the two deepest encoder stages in training. With
+`eqmask_pool` the CRP pools take the equality-mask backward
+(`layers.max_pool_5x5_same_eqmask`, `ModelConfig.pool_eqmask_grad`).
 Returns disparities [scale0, scale1, scale2, scale3] at 1/2 .. 1/16 of the
 input resolution, each (B, 1, h, w). With `remat`, the levels' activations
 are recomputed in the backward; the dropout masks are drawn before, once."""
@@ -36,11 +38,12 @@ def leaky_relu(x: torch.Tensor) -> torch.Tensor:
 
 
 class _Level(nn.Module):
-    def __init__(self, feat_ch: int, reduce_ch: int, in_ch: int, bottleneck: int):
+    def __init__(self, feat_ch: int, reduce_ch: int, in_ch: int, bottleneck: int,
+                 eqmask_pool: bool = False):
         super().__init__()
         self.reduce = Conv1x1(feat_ch, reduce_ch)
         self.iconv = Conv3x3(in_ch, bottleneck)
-        self.crp = CRPBlock(bottleneck, 4)
+        self.crp = CRPBlock(bottleneck, 4, eqmask_pool=eqmask_pool)
         self.merge = Conv3x3(bottleneck, bottleneck)
         self.disp = Conv3x3(bottleneck, 1)
 
@@ -57,17 +60,18 @@ class _Level(nn.Module):
 
 class DepthDecoder(nn.Module):
     def __init__(self, num_ch_enc: Sequence[int], bottleneck: int = 256,
-                 dropout_rate: float = 0.5, remat: bool = False, use_shuffle: bool = False):
+                 dropout_rate: float = 0.5, remat: bool = False, use_shuffle: bool = False,
+                 eqmask_pool: bool = False):
         super().__init__()
         self.dropout_rate = dropout_rate
         self.remat = remat
         bn = bottleneck
         # levels run from the deepest stage (4) up to stage 1
         self.levels = nn.ModuleList([
-            _Level(num_ch_enc[4], 512, 512, bn),
-            _Level(num_ch_enc[3], bn, 2 * bn + 1, bn),
-            _Level(num_ch_enc[2], bn, 2 * bn + 1, bn),
-            _Level(num_ch_enc[1], bn, 2 * bn + 1, bn),
+            _Level(num_ch_enc[4], 512, 512, bn, eqmask_pool),
+            _Level(num_ch_enc[3], bn, 2 * bn + 1, bn, eqmask_pool),
+            _Level(num_ch_enc[2], bn, 2 * bn + 1, bn, eqmask_pool),
+            _Level(num_ch_enc[1], bn, 2 * bn + 1, bn, eqmask_pool),
         ])
         ups = [upsample2x_nearest] * 4
         if use_shuffle:

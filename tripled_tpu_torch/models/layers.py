@@ -214,18 +214,61 @@ def max_pool_5x5_same(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x, 5, stride=1, padding=2)
 
 
+def _shift25(a: torch.Tensor, h: int, w: int):
+    """The 25 (di, dj) translates of an NCHW array padded by 2 on each side,
+    di then dj."""
+    for di in range(5):
+        for dj in range(5):
+            yield a[:, :, di:di + h, dj:dj + w]
+
+
+class _MaxPool5x5EqMask(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return max_pool_5x5_same(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        y = max_pool_5x5_same(x)  # recomputed, as the JAX backward does
+        h, w = x.shape[2], x.shape[3]
+        # -inf padding on x never equals a window's max; +inf padding on y
+        # never equals a real x
+        xp = F.pad(x, (2, 2, 2, 2), value=-math.inf)
+        ties = sum((xs == y).to(g.dtype) for xs in _shift25(xp, h, w))
+        gp = F.pad(g / ties, (2, 2, 2, 2))
+        yp = F.pad(y, (2, 2, 2, 2), value=math.inf)
+        acc = torch.zeros_like(x)
+        for ys, gs in zip(_shift25(yp, h, w), _shift25(gp, h, w)):
+            acc = acc + torch.where(ys == x, gs, torch.zeros_like(gs))
+        return acc.to(x.dtype)
+
+
+def max_pool_5x5_same_eqmask(x: torch.Tensor) -> torch.Tensor:
+    """`max_pool_5x5_same` with the JAX package's equality-mask backward
+    (`tripled_tpu/models/layers.py:143-207`): each window's gradient,
+    divided by the number of positions tied at its max, goes to every one
+    of them, summed over the windows in the JAX order. On tie-free windows
+    this is the gradient of the max pool; F.max_pool2d's gives a tied
+    window's gradient to one position."""
+    return _MaxPool5x5EqMask.apply(x)
+
+
 class CRPBlock(nn.Module):
     """Chained residual pooling: n_stages x (5x5 max pool -> 1x1 conv),
-    each stage summed into the input."""
+    each stage summed into the input; with `eqmask_pool`, the pools take
+    the equality-mask backward."""
 
-    def __init__(self, channels: int, n_stages: int = 4):
+    def __init__(self, channels: int, n_stages: int = 4, eqmask_pool: bool = False):
         super().__init__()
         self.convs = nn.ModuleList(Conv1x1(channels, channels) for _ in range(n_stages))
+        self.pool = max_pool_5x5_same_eqmask if eqmask_pool else max_pool_5x5_same
 
     def forward(self, x):
         top = x
         for conv in self.convs:
-            top = conv(max_pool_5x5_same(top))
+            top = conv(self.pool(top))
             x = top + x
         return x
 

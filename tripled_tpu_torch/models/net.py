@@ -12,7 +12,11 @@ decode each source frame outside its warped erase mask). And every
 architecture option: the attention (`ca`, `pa`, `asca`) and 1x1 depth
 skips, the 1x1 colour skips, pose from prediction (`use_pfp`), the
 pixel-shuffle CRP decoder, HR-Depth's decoder, and DIFFNet (an HRNet
-encoder on the raw image with its attention decoder).
+encoder on the raw image with its attention decoder). And the warp and
+kernel options: every warp goes through `_grid_sample` (the block warp,
+bf16 texels, `warp_align_corners=False`); the unfused photometric path
+(`use_pallas_photometric=False`); the eq-mask CRP pool; and the stereo
+frame "s", warped by `stereo_T` with no pose.
 
 Inputs are a dict of stacked tensors in the JAX package's layout, frame axis
 F in `cfg.frame_ids` order (index 0 is the target frame):
@@ -25,6 +29,7 @@ F in `cfg.frame_ids` order (index 0 is the target frame):
   mask              (B, H, W, 1) inpaint erase mask, 1 = keep (inpaint only)
   map_mask          (B, F-1, H, W, 1) motion masks (map-pose only)
   map_params        (B, F-1, 3) (label, alpha1, alpha2) per source frame
+  stereo_T          (B, 4, 4) when "s" is in frame_ids
 In training mode the forward returns (outputs, loss_dict) with scalar
 losses; in eval mode, the 4-scale disparity list [s0..s3], each
 (B, h, w, 1). The networks run NCHW; the losses take NHWC views, as the
@@ -82,13 +87,20 @@ from tripled_tpu_torch.ops.jitter import color_jitter
 from tripled_tpu_torch.ops.losses import (
     erased_mean,
     feature_regularization_loss,
+    min_reprojection_with_automask,
     perceptional_loss,
     reprojection_loss,
     smooth_loss,
 )
 from tripled_tpu_torch.ops.photometric import fused_min_reprojection
-from tripled_tpu_torch.ops.warp import grid_sample
+from tripled_tpu_torch.ops.warp import grid_sample, grid_sample_block
 from tripled_tpu_torch.presets import canonicalize
+
+
+# a warp of at most this many channels is a colour warp, which takes the
+# block warp in cfg.warp_block_shape; a wider one (the 64-channel features)
+# takes it only under cfg.warp_block_features, in (2, 2) blocks
+_COLOR_WARP_MAX_CH = 4
 
 
 def frames_to_float(x: torch.Tensor) -> torch.Tensor:
@@ -198,7 +210,8 @@ class TripleDNet(nn.Module):
             else:
                 self.depth_decoder = DepthDecoder(depth_ch, dropout_rate=cfg.depth_dropout_rate,
                                                   remat=cfg.remat,
-                                                  use_shuffle=cfg.depth_use_shuffle)
+                                                  use_shuffle=cfg.depth_use_shuffle,
+                                                  eqmask_pool=cfg.pool_eqmask_grad)
         self.pose_encoder = PoseEncoder(cfg.pose_num_layers, 2, remat=cfg.remat)
         self.pose_decoder = PoseDecoder(self.pose_encoder.num_ch_enc[-1])
         if cfg.use_extractor:
@@ -266,10 +279,11 @@ class TripleDNet(nn.Module):
     # ------------------------------------------------------------- forward
 
     def forward(self, inputs: Dict[str, torch.Tensor], generator: torch.Generator | None = None,
-                pretext: torch.Generator | None = None):
+                pretext: torch.Generator | None = None, automask: torch.Generator | None = None):
         """`generator` draws the decoder's dropout in training; `pretext`, a
         CPU generator, the rotation pretext's crop and labels
-        (`aux_nets.draw_pretext`)."""
+        (`aux_nets.draw_pretext`); `automask`, on the model's device, the
+        unfused photometric path's tie-break noise."""
         c = self.cfg
         inputs = dict(inputs)
         for key in ("color", "color_aug"):
@@ -342,7 +356,7 @@ class TripleDNet(nn.Module):
                                        cond_features=cond)
             outputs["sep_inpaint"] = [_nhwc(x) for x in self.inpaint_decoder(emb, disps_nchw)]
 
-        return outputs, self._compute_losses(inputs, outputs, features)
+        return outputs, self._compute_losses(inputs, outputs, features, automask)
 
     def _extract(self, img, stages: int = 5):
         """Extractor features (NCHW list). Frozen: no autograd graph is kept,
@@ -389,6 +403,8 @@ class TripleDNet(nn.Module):
         tgt = at_pose_res(inputs["color_aug"][:, 0]) if target is None else target
         cam_T_cam, map_logits = {}, {}
         for i, f_i in enumerate(c.frame_ids[1:], start=1):
+            if f_i == "s":  # the stereo pair's pose is stereo_T, not predicted
+                continue
             src = at_pose_res(inputs["color_aug"][:, i])
             tgt_i = tgt
             if c.map_pose:
@@ -409,6 +425,37 @@ class TripleDNet(nn.Module):
 
     # --------------------------------------------------------------- warps
 
+    def _frame_T(self, inputs, outputs, i):
+        """The target-to-source transform of source frame i: `stereo_T` for
+        the stereo frame, the predicted pose otherwise."""
+        if self.cfg.frame_ids[i] == "s":
+            return inputs["stereo_T"]
+        return outputs["cam_T_cam"][i]
+
+    def _grid_sample(self, img, coords, method="bilinear"):
+        """Every warp of the model (`tripled_tpu/models/net.py:461-504`):
+        with warp_align_corners=False the coordinates move to
+        x * w/(w-1) - 0.5 and y * h/(h-1) - 0.5, h and w the sampled
+        image's; the texels round to warp_gather_dtype; under
+        warp_block_gather a bilinear warp of at most _COLOR_WARP_MAX_CH
+        channels takes the block warp in warp_block_shape, and one of at
+        most 64 under warp_block_features in (2, 2), where the output's
+        height and width divide by the block, the exact warp otherwise."""
+        c = self.cfg
+        if not c.warp_align_corners:
+            h, w = img.shape[1], img.shape[2]
+            scale = torch.tensor([w / (w - 1.0), h / (h - 1.0)], dtype=coords.dtype,
+                                 device=coords.device)
+            coords = coords * scale - 0.5
+        gd = torch.bfloat16 if c.warp_gather_dtype == "bfloat16" else None
+        ch = img.shape[-1]
+        if c.warp_block_gather and method == "bilinear" and (
+                ch <= _COLOR_WARP_MAX_CH or (c.warp_block_features and ch <= 64)):
+            bh, bw = c.warp_block_shape if ch <= _COLOR_WARP_MAX_CH else (2, 2)
+            if coords.shape[1] % bh == 0 and coords.shape[2] % bw == 0:
+                return grid_sample_block(img, coords, gather_dtype=gd, block=(bh, bw))
+        return grid_sample(img, coords, method=method, gather_dtype=gd)
+
     def _warp_colors(self, inputs, outputs, disp):
         """Backward-warp each source frame into the target view."""
         c = self.cfg
@@ -416,8 +463,9 @@ class TripleDNet(nn.Module):
         _, depth = disp_to_depth(disp, c.min_depth, c.max_depth)
         warped = []
         for i in range(1, c.num_frames):
-            coords = warp_coords(depth, inputs["inv_K"], inputs["K"], outputs["cam_T_cam"][i])
-            warped.append(grid_sample(inputs["color"][:, i], coords))
+            coords = warp_coords(depth, inputs["inv_K"], inputs["K"],
+                                 self._frame_T(inputs, outputs, i))
+            warped.append(self._grid_sample(inputs["color"][:, i], coords))
         return warped
 
     def _warp_features(self, inputs, outputs, disp0):
@@ -429,11 +477,11 @@ class TripleDNet(nn.Module):
         inv_K2 = invert_intrinsics(K2)
         feats = []
         for i in range(1, c.num_frames):
-            coords = warp_coords(depth, inv_K2, K2, outputs["cam_T_cam"][i])
+            coords = warp_coords(depth, inv_K2, K2, self._frame_T(inputs, outputs, i))
             # only stage 0 reaches the loss; the float32 frame computes in
             # float32, and the features are warped from their bf16 rounding
             src_f = _nhwc(self._extract(inputs["color"][:, i], stages=1)[0])
-            feats.append(grid_sample(self._cd(src_f), coords))
+            feats.append(self._grid_sample(self._cd(src_f), coords))
         return feats
 
     def _warp_features_cropped(self, inputs, outputs, disp0, ri, rj):
@@ -451,10 +499,10 @@ class TripleDNet(nn.Module):
         inv_K2 = invert_intrinsics(K2)
         feats = []
         for i in range(1, c.num_frames):
-            coords = warp_coords(depth, inv_K2, K2, outputs["cam_T_cam"][i])
+            coords = warp_coords(depth, inv_K2, K2, self._frame_T(inputs, outputs, i))
             src = crop(inputs["color"][:, i], ri, rj, size)
             src_f = _nhwc(self._extract(src, stages=1)[0])
-            feats.append(grid_sample(self._cd(src_f), coords))
+            feats.append(self._grid_sample(self._cd(src_f), coords))
         return feats
 
     def _equivariant_outputs(self, inputs, outputs):
@@ -468,26 +516,26 @@ class TripleDNet(nn.Module):
         mask = inputs["mask"]
         res_imgs, masks = {}, {}
         for i in range(1, c.num_frames):
-            T = outputs["cam_T_cam"][i]
+            T = self._frame_T(inputs, outputs, i)
             masks[i] = []
             for s in c.scales:
                 disp = resize_bilinear(outputs["disps"][s], c.height, c.width)
                 _, depth = disp_to_depth(disp, c.min_depth, c.max_depth)
                 coords = warp_coords(depth, inputs["K"], inputs["inv_K"], T)
-                masks[i].append(grid_sample(mask, coords, method="nearest"))
+                masks[i].append(self._grid_sample(mask, coords, method="nearest"))
             src_f = _nhwc(self._extract(inputs["color"][:, i])[4])
             fh, fw = src_f.shape[1], src_f.shape[2]
             _, depth = disp_to_depth(resize_bilinear(outputs["disps"][0], fh, fw), c.min_depth,
                                      c.max_depth)
             Kf = scale_intrinsics(inputs["K"], 1.0 / (c.width // fw), 1.0 / (c.height // fh))
             coords = warp_coords(depth, invert_intrinsics(Kf), Kf, T)
-            warped = _nchw(grid_sample(src_f, coords))
+            warped = _nchw(self._grid_sample(src_f, coords))
             res_imgs[i] = [_nhwc(x) for x in self.image_decoder([None] * 4 + [warped])]
         return {"res_imgs": res_imgs, "masks": masks}
 
     # -------------------------------------------------------------- losses
 
-    def _compute_losses(self, inputs, outputs, features):
+    def _compute_losses(self, inputs, outputs, features, automask=None):
         c = self.cfg
         n_scales = len(c.scales)
         target = inputs["color"][:, 0]
@@ -522,10 +570,16 @@ class TripleDNet(nn.Module):
         eq = self._equivariant_outputs(inputs, outputs) if c.equivariant else None
 
         # identity candidates first, so that an exact tie keeps the pixel
-        # automasked; they and the target are input frames, so only the
-        # warped candidates get a gradient
+        # automasked (the fused path) or the noise breaks it (the unfused
+        # one); they and the target are input frames, so only the warped
+        # candidates get a gradient
         idents = [inputs["color"][:, i] for i in range(1, c.num_frames)] if c.automask else []
         n_id = len(idents)
+        # the unfused path's, in float32 whatever the compute dtype, as in
+        # JAX (`tripled_tpu/models/net.py:702-718`); they do not depend on
+        # the scale
+        ident_losses = ([] if c.use_pallas_photometric
+                        else [reprojection_loss(p, target) for p in idents])
         for s in c.scales:
             disp = outputs["disps"][s]
 
@@ -540,11 +594,20 @@ class TripleDNet(nn.Module):
                 loss_dict[f"img_reconstruct_loss/{s}"] = rec / n_scales * c.img_reconstruct_weight
 
             warped = self._warp_colors(inputs, outputs, disp)
-            # the slabs in the compute dtype; the kernels compute in float32
-            preds = self._cd(torch.stack(idents + warped, dim=1))
-            min_rec, _ = fused_min_reprojection(
-                self._cd(target), preds, grad_ks=tuple(range(n_id, preds.shape[1])),
-                need_target_grad=False)
+            if c.use_pallas_photometric:
+                # the slabs in the compute dtype; the kernels compute in float32
+                preds = self._cd(torch.stack(idents + warped, dim=1))
+                min_rec, _ = fused_min_reprojection(
+                    self._cd(target), preds, grad_ks=tuple(range(n_id, preds.shape[1])),
+                    need_target_grad=False)
+            else:
+                noise = None
+                if ident_losses:
+                    shape = (*ident_losses[0].shape[:3], len(ident_losses))
+                    noise = torch.randn(shape, generator=automask, dtype=target.dtype,
+                                        device=target.device) * 1e-5
+                min_rec = min_reprojection_with_automask(
+                    [reprojection_loss(p, target) for p in warped], ident_losses, noise)
             loss_dict[f"min_reconstruct_loss/{s}"] = min_rec.mean() / n_scales
 
             if eq is not None:
@@ -574,6 +637,8 @@ class TripleDNet(nn.Module):
                 target, outputs["sep_inpaint"][0], mask) * c.inpaint_weight
         if c.map_pose and c.map_pose_weight > 0:
             for i in range(1, c.num_frames):
+                if c.frame_ids[i] == "s":
+                    continue
                 labels = inputs["map_params"][:, i - 1, 0].long()
                 logp = torch.log_softmax(outputs["map_logits"][i], dim=-1)
                 loss_dict[f"map_pose_loss/{i}"] = (

@@ -7,7 +7,9 @@ rotation pretext `mono_fm_joint_im_rot`, `mono_fm_joint_inpaint_map_pose`,
 `inpainter` and `rotnet`, which `build_model` returns as their own
 modules (`models/aux_nets.py`). Two operating points: `mono_fm_bench()`
 (`bench.py:118-140`) and `flagship_bench()` (`configs/cfg_kitti_tripled.py`),
-both in float32 with the exact warp."""
+both in float32 with the exact warp; and the two rows `bench.py` measures
+at its defaults: `mono_fm_r50_192x640()` and `tripled_r50_320x1024()`,
+in bf16 with bf16 texels and the 2x2 block warp."""
 
 from __future__ import annotations
 
@@ -165,3 +167,30 @@ def flagship_bench() -> tuple[ModelConfig, DataConfig, OptimConfig]:
     )
     data = DataConfig(batch_size=12, erase_shape=(16, 16), erase_count=16)
     return model, data, OptimConfig(lr_steps=(10, 20))
+
+
+def mono_fm_r50_192x640() -> tuple[ModelConfig, DataConfig, OptimConfig]:
+    """`bench.py`'s headline row, `train_imgs_per_sec_mono_fm_r50_192x640`:
+    `mono_fm_cfg()` at its environment defaults (`bench.py:118-147`,
+    BENCH_BF16, BENCH_BF16_WARP and BENCH_BLOCK_WARP on, the block shape
+    2,2, the fused photometric path, no remat, no eq-mask pool) at
+    BENCH_BATCH's 16 (`bench.py:478`): `mono_fm_bench()` in bf16 with bf16
+    texels and the 2x2 block warp."""
+    model, data, optim = mono_fm_bench()
+    model = dataclasses.replace(model, compute_dtype="bfloat16", warp_gather_dtype="bfloat16",
+                                warp_block_gather=True, warp_block_shape=(2, 2))
+    return model, dataclasses.replace(data, batch_size=16), optim
+
+
+def tripled_r50_320x1024() -> tuple[ModelConfig, DataConfig, OptimConfig]:
+    """`bench.py`'s flagship row, `train_imgs_per_sec_tripleD_r50_320x1024`:
+    `flagship_cfg()` at its environment defaults (`bench.py:150-179`: bf16
+    with remat, bf16 texels and the 2x2 block warp, the fused photometric
+    path) at BENCH_FLAGSHIP_BATCH's bf16 default of 8 (`bench.py:552`):
+    `flagship_bench()` so changed. The byte cap that `flagship_cfg()`
+    raises matters only to a block other than 2x2."""
+    model, data, optim = flagship_bench()
+    model = dataclasses.replace(model, compute_dtype="bfloat16", remat=True,
+                                warp_gather_dtype="bfloat16", warp_block_gather=True,
+                                warp_block_shape=(2, 2))
+    return model, dataclasses.replace(data, batch_size=8), optim

@@ -77,11 +77,14 @@ def train_mono(
 
     optimizer = state.optimizer
     train_step = make_train_step(state.model, optimizer)
-    # the decoder's dropout, and on the CPU the rotation pretext's crop and
-    # labels; seeded from cfg.seed at every start, a resumed run's
-    # included, as the JAX loop restarts PRNGKey(cfg.seed)
+    # the decoder's dropout, on the CPU the rotation pretext's crop and
+    # labels, and the unfused photometric path's tie-break noise (seed + 2,
+    # as the JAX package seeds its automask stream); seeded from cfg.seed
+    # at every start, a resumed run's included, as the JAX loop restarts
+    # PRNGKey(cfg.seed)
     generator = torch.Generator(device).manual_seed(cfg.seed)
     pretext = torch.Generator().manual_seed(cfg.seed + 1)
+    automask = torch.Generator(device).manual_seed(cfg.seed + 2)
 
     evaluator = None
     if cfg.validate and val_dataset is not None:
@@ -104,7 +107,7 @@ def train_mono(
                     wait_s += time.perf_counter() - t_wait
                     if batch is None:
                         break
-                    metrics = train_step(batch, generator, pretext)
+                    metrics = train_step(batch, generator, pretext, automask)
                     n_steps += 1
                     if it % cfg.log_interval == 0:
                         m = {k: v.item() for k, v in metrics.items()}

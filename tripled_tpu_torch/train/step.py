@@ -1,12 +1,18 @@
 """Train and predict steps (`tripled_tpu/train/step.py:37-105`).
 
-Two generators draw a step's randomness: `generator`, on the model's
+Three generators draw a step's randomness: `generator`, on the model's
 device, the depth decoder's dropout masks (l4's, then l3's); `pretext`, a
 CPU generator, the rotation pretext's crop offset and labels
 (`models/aux_nets.draw_pretext`: row offset, column offset, one label per
-sample), once per step, before the extractor runs. The JAX step splits
-its key into `dropout`, `automask`, `crop` and `rotation` streams; the
-port draws no automask noise (its kernel breaks ties instead)."""
+sample), once per step, before the extractor runs; `automask`, on the
+model's device, the unfused photometric path's N(0, 1) * 1e-5 tie-break
+noise on the identity losses, one draw per scale
+(`use_pallas_photometric=False` with automask on; the fused path breaks
+ties without noise). The JAX step splits its key into `dropout`,
+`automask`, `crop` and `rotation` streams; a torch generator's bits are
+not comparable with JAX's PRNG. `train/loop.py` seeds the automask
+generator from the config's seed + 2, as the JAX package seeds its
+automask stream (`tripled_tpu/train/state.py:28`)."""
 
 from __future__ import annotations
 
@@ -44,22 +50,25 @@ def cast_floating(model: torch.nn.Module, dtype: torch.dtype):
 
 
 def make_train_step(model: torch.nn.Module, optimizer: Adam) -> Callable:
-    """step(batch, generator=None, pretext=None) -> metrics: every loss_dict
-    entry, `loss` (their sum) and `grad_norm` (before clipping), as 0-d
-    float32 tensors. `model` is any preset's module (`presets.build_model`).
-    `generator` draws the decoder's dropout, `pretext` the rotation
-    pretext's crop and labels. Under
+    """step(batch, generator=None, pretext=None, automask=None) -> metrics:
+    every loss_dict entry, `loss` (their sum) and `grad_norm` (before
+    clipping), as 0-d float32 tensors. `model` is any preset's module
+    (`presets.build_model`). `generator` draws the decoder's dropout,
+    `pretext` the rotation pretext's crop and labels, `automask` the
+    unfused photometric path's tie-break noise. Under
     `compute_dtype="bfloat16"` the loss sees every floating parameter
     rounded to bf16 (`cast_floating`); gradients, parameters and Adam's
     moments stay float32."""
     bf16 = model.cfg.compute_dtype == "bfloat16"
 
     def train_step(batch: Dict[str, torch.Tensor], generator: torch.Generator | None = None,
-                   pretext: torch.Generator | None = None):
+                   pretext: torch.Generator | None = None,
+                   automask: torch.Generator | None = None):
         model.train()
         model.zero_grad(set_to_none=True)
         with cast_floating(model, torch.bfloat16) if bf16 else nullcontext():
-            loss_dict = model(batch, generator, pretext)[1]  # no reference to the outputs past here
+            # no reference to the outputs past here
+            loss_dict = model(batch, generator, pretext, automask)[1]
             total = sum(loss_dict.values())
             total.backward()
         grad_norm = optimizer.step()

@@ -20,11 +20,16 @@ def kitti_intrinsics(batch: int, height: int, width: int) -> np.ndarray:
 
 def random_train_inputs(batch: int, height: int, width: int, seed: int = 0,
                         num_frames: int = 3, erase_count: int = 0,
-                        erase_shape=(16, 16), device="cuda") -> dict:
+                        erase_shape=(16, 16), device="cuda", frame_ids=None) -> dict:
     """color / color_aug (B, F, H, W, 3) in [0, 1), K and inv_K (B, 4, 4);
     with erase_count > 0 also the inpaint `mask` (B, H, W, 1), one
     `make_erase_mask` per sample drawn from the same RandomState, as the
-    inpaint dataset draws one per sample."""
+    inpaint dataset draws one per sample. `frame_ids`, where given, sets F;
+    with "s" among them also `stereo_T` (B, 4, 4), as the datasets build it
+    (`data/datasets.py`): the identity with a 0.015 baseline in x whose
+    sign, the side's times the flip's, is drawn per sample after the rest."""
+    if frame_ids is not None:
+        num_frames = len(frame_ids)
     rng = np.random.RandomState(seed)
     K = kitti_intrinsics(batch, height, width)
     arrays = {
@@ -36,6 +41,10 @@ def random_train_inputs(batch: int, height: int, width: int, seed: int = 0,
     if erase_count > 0:
         arrays["mask"] = np.stack([make_erase_mask(rng, height, width, erase_shape, erase_count)
                                    for _ in range(batch)])
+    if frame_ids is not None and "s" in frame_ids:
+        stereo_T = np.tile(np.eye(4, dtype=np.float32), (batch, 1, 1))
+        stereo_T[:, 0, 3] = np.where(rng.rand(batch) > 0.5, 0.015, -0.015)
+        arrays["stereo_T"] = stereo_T
     return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
 
 
