@@ -45,7 +45,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from test_torch_port_step import mono_fm_kwargs, run_both
+from test_torch_port_step import kernels_not_drawn, mono_fm_kwargs, run_both
 from tripled_tpu_torch.config import ModelConfig
 from tripled_tpu_torch.models.net import TripleDNet
 from tripled_tpu_torch.ops.losses import feature_regularization_loss, perceptional_loss, robust_l1
@@ -193,7 +193,8 @@ def test_bf16_remat_jax_tree_loads_and_predicts_as_jax():
     assert leaves and all(leaf.dtype == np.float32 for leaf in leaves)
     assert "CheckpointResNetFeatures_0" in shapes["params"]["depth_encoder"]
     params, stats = _random_variables(jmodel, inputs)
-    model = TripleDNet(ModelConfig(**kw))
+    with kernels_not_drawn():  # the load overwrites every parameter
+        model = TripleDNet(ModelConfig(**kw))
     load_jax_variables(model, jax.tree_util.tree_map(np.asarray, params),
                        jax.tree_util.tree_map(np.asarray, stats))
     assert all(p.dtype == torch.float32 for p in model.parameters())

@@ -777,3 +777,56 @@ def test_stereo_step_on_the_card_matches_the_cpu(cuda_device, monkeypatch):
         assert math.isfinite(gpu[k])
         spread = abs(again[k] - gpu[k])
         assert abs(gpu[k] - cpu[k]) <= 3 * spread + 1e-4 * abs(cpu[k]), (k, gpu[k], cpu[k])
+
+
+@pytest.mark.cuda
+def test_batchnorm_at_world_size_1_over_nccl_is_the_groupless_module(cuda_device, monkeypatch):
+    """A training BatchNorm's output, gradients and running statistics in a
+    1-rank NCCL group (`parallel.init_from_env`) bit-equal to the module's
+    without a group; and the cross-rank function itself on the card
+    against F.batch_norm, within float32 rounding (1e-5 of the output,
+    1e-4 of the gradients' largest)."""
+    import socket
+
+    from tripled_tpu_torch.models.layers import BatchNorm, _CrossRankBatchNorm
+    from tripled_tpu_torch.parallel import dist
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    for k, v in dict(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1", MASTER_ADDR="localhost",
+                     MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(k, v)
+    gen = torch.Generator().manual_seed(0)
+    x = (torch.randn(4, 8, 16, 16, generator=gen) * 3 + 1).to(cuda_device)
+    g = torch.randn(4, 8, 16, 16, generator=gen).to(cuda_device)
+    w = torch.rand(8, generator=gen).add(0.5).to(cuda_device)
+
+    def run():
+        bn = BatchNorm(8).to(cuda_device)
+        with torch.no_grad():
+            bn.weight.copy_(w)
+        xx = x.clone().requires_grad_()
+        y = bn(xx)
+        y.backward(g)
+        return y, xx.grad, bn.weight.grad, bn.bias.grad, bn.running_mean, bn.running_var
+
+    alone = run()
+    device = dist.init_from_env(cuda_device)
+    try:
+        assert dist.world_size() == 1 and device.type == "cuda"
+        grouped = run()
+        xx = x.clone().requires_grad_()
+        ww = w.clone().requires_grad_()
+        bb = torch.zeros_like(w).requires_grad_()
+        y, mean, var = _CrossRankBatchNorm.apply(xx, ww, bb, 1e-5, torch.float32)
+        y.backward(g)
+    finally:
+        dist.destroy()
+    for a, b in zip(alone, grouped):
+        assert torch.equal(a, b)
+    assert (y - alone[0]).abs().max().item() <= 1e-5 * alone[0].abs().max().item()
+    for got, want in [(xx.grad, alone[1]), (ww.grad, alone[2]), (bb.grad, alone[3])]:
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    torch.testing.assert_close(mean, x.mean(dim=(0, 2, 3)), rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(var, x.var(dim=(0, 2, 3), unbiased=False), rtol=1e-5, atol=1e-6)

@@ -36,6 +36,7 @@ import torch
 
 import tripled_tpu.config as jcfg
 from test_torch_port_models import _close, _nchw, _nhwc, _random_variables
+from test_torch_port_step import kernels_not_drawn
 from tripled_tpu.data.transforms import make_erase_mask
 from tripled_tpu.models import encoders as jenc
 from tripled_tpu.models import net as jnet
@@ -81,10 +82,12 @@ def _hold_distill(kw, jmethod, tmethod, head_name, rng):
             return jm.apply({"params": params, "batch_stats": v["batch_stats"]}, inputs,
                             {"disps": [d]}, train=True, method=jmethod, mutable=["batch_stats"])
 
-        want, mutated = loss(v["params"], disp0)
-        gparams, gdisp = jax.grad(lambda p, d: loss(p, d)[0], argnums=(0, 1))(v["params"], disp0)
+        want, mutated = jax.jit(loss)(v["params"], disp0)
+        gparams, gdisp = jax.jit(jax.grad(lambda p, d: loss(p, d)[0], argnums=(0, 1)))(
+            v["params"], disp0)
 
-    model = TripleDNet(ModelConfig(**kw)).double().train()
+    with kernels_not_drawn():  # only the head, loaded, and its input reach the loss
+        model = TripleDNet(ModelConfig(**kw)).double().train()
     head = getattr(model, head_name)
     load_jax_variables(head, v["params"][head_name], v["batch_stats"][head_name])
     tdisp = torch.from_numpy(disp0).requires_grad_()
@@ -131,7 +134,9 @@ def test_surface_normal_matches_jax(shape, rng_np):
     with jax.enable_x64(True):
         jm = build_model(jcfg.ModelConfig(**kw))
         want = np.asarray(jm.apply({}, jnp.asarray(disp), method=jnet.TripleDNet._surface_normal))
-    got = TripleDNet(ModelConfig(**kw))._surface_normal(torch.from_numpy(disp)).numpy()
+    with kernels_not_drawn():  # the normal reads no parameter
+        net = TripleDNet(ModelConfig(**kw))
+    got = net._surface_normal(torch.from_numpy(disp)).numpy()
     assert got.shape == shape[:3] + (3,)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-12 * np.abs(want).max())
     # the borders are one-sided differences, not wrapped or zero-padded
@@ -203,13 +208,14 @@ def _extractor_reference():
     with jax.enable_x64(True):
         jm = jenc.Extractor(18)
         v = _random_variables(jm, x, cond, dtype=np.float64, train=True)
-        feats, mutated = jm.apply(v, x, cond, train=True, mutable=["batch_stats"])
-        _, pullback = jax.vjp(
-            lambda a, cs: jm.apply(v, a, cs, train=True, mutable=["batch_stats"])[0], x, cond)
+        # jitted: one compile each, where op-by-op dispatch compiles every op
+        fwd = jax.jit(lambda a, cs: jm.apply(v, a, cs, train=True, mutable=["batch_stats"]))
+        feats, mutated = fwd(x, cond)
+        _, pullback = jax.vjp(lambda a, cs: fwd(a, cs)[0], x, cond)
         weights = [rng.rand(*f.shape) for f in feats]
         grads = {k: pullback([w if i < k else np.zeros_like(w) for i, w in enumerate(weights)])
                  for k in (5, 2)}
-        plain = jm.apply(v, x, train=True, mutable=["batch_stats"])[0]
+        plain = jax.jit(lambda a: jm.apply(v, a, train=True, mutable=["batch_stats"])[0])(x)
     return x, cond, weights, v, feats, mutated, grads, plain
 
 

@@ -37,7 +37,7 @@ from tripled_tpu_torch.models.net import TripleDNet
 from tripled_tpu_torch.train.step import make_predict_fn
 from tripled_tpu_torch.utils.jax_weights import load_jax_variables
 
-from test_torch_port_step import _random_variables
+from test_torch_port_step import _random_variables, kernels_not_drawn
 
 torch.set_num_threads(1)
 
@@ -93,7 +93,8 @@ def evaluators(tmp_path_factory):
     jmodel = build_model(JaxModelConfig(**MODEL))
     params, stats = _random_variables(jmodel, dummy_train_inputs(JaxModelConfig(**MODEL), 1))
     variables = {"params": params, "batch_stats": stats}
-    model = TripleDNet(ModelConfig(**MODEL))
+    with kernels_not_drawn():  # the load overwrites every parameter
+        model = TripleDNet(ModelConfig(**MODEL))
     load_jax_variables(model, jax.tree_util.tree_map(np.asarray, params),
                        jax.tree_util.tree_map(np.asarray, stats))
     with pytest.MonkeyPatch.context() as mp:

@@ -1,9 +1,10 @@
 """The flagship step of `test_torch_port_flagship.py` in float64, automask
-off, against the JAX package's step on the CPU, cut to one source frame at
-64x96 with the pose net at 32x64 (a factor of 2/3 along the width): the
-JAX step's trace and compile, most of this file's time, grow with the
-frames. Every term of the flagship and all four scales are kept; the
-float32 test holds both source frames.
+off, against the JAX package's step on the CPU, cut to one source frame
+and scale 0 at 64x96 with the pose net at 32x64 (a factor of 2/3 along
+the width): the JAX step's trace and compile, most of this file's time,
+grow with the frames and scales. Every term of the flagship is kept; the
+float32 and bf16 flagship files hold both source frames and all four
+scales.
 
 Automask is off here because the JAX step's XLA path adds N(0, 1e-5)
 tie-break noise to the identity losses, which moves a few pixels' minimum
@@ -34,7 +35,7 @@ import jax
 import numpy as np
 import torch
 
-from test_torch_port_flagship import EXPECTED_KEYS, flagship_inputs, flagship_kwargs
+from test_torch_port_flagship import expected_keys, flagship_inputs, flagship_kwargs
 from test_torch_port_step import check_against_jax, run_both
 
 torch.set_num_threads(1)
@@ -44,10 +45,10 @@ TOL_F64 = dict(loss=1e-12, f32_reduced_loss=5e-6, grad_norm=1e-10, grad=1e-9, pa
 
 
 def test_flagship_step_float64_matches_jax():
-    kwargs = dict(flagship_kwargs(automask=False), frame_ids=(0, 1), height=64, width=96,
-                  pose_width=64)
+    kwargs = dict(flagship_kwargs(automask=False), frame_ids=(0, 1), scales=(0,), height=64,
+                  width=96, pose_width=64)
     with jax.enable_x64(True):
         jm, tm, *rest = run_both(kwargs, dtype=np.float64,
                                  inputs=flagship_inputs(np.float64, 64, 96, sources=1))
-    assert list(tm) == EXPECTED_KEYS
+    assert list(tm) == expected_keys(scales=(0,))
     check_against_jax(jm, tm, *rest, automask=False, tol=TOL_F64)

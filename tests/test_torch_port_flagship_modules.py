@@ -23,6 +23,7 @@ import tripled_tpu.config as jcfg
 import tripled_tpu.models.decoders as jdec
 from test_torch_port_flagship import flagship_inputs, flagship_kwargs
 from test_torch_port_models import _close, _nchw, _nhwc, _random_variables
+from test_torch_port_step import kernels_not_drawn
 from tripled_tpu.data.transforms import make_erase_mask as jax_make_erase_mask
 from tripled_tpu.models.layers import identity_partial as jax_identity_partial
 from tripled_tpu.models.registry import build_model
@@ -118,8 +119,8 @@ def test_feature_regularization_loss_matches_jax(hw, rng_np):
     feat = rng_np.randn(B, h, w, 8)
     img = rng_np.rand(B, 64, 128, 3)
     with jax.enable_x64(True):
-        val, grad = jax.value_and_grad(
-            lambda f: jloss.feature_regularization_loss(f, img, 1e-3, 2e-3))(feat)
+        val, grad = jax.jit(jax.value_and_grad(
+            lambda f: jloss.feature_regularization_loss(f, img, 1e-3, 2e-3)))(feat)
     tf = torch.from_numpy(feat).requires_grad_()
     out = tloss.feature_regularization_loss(tf, torch.from_numpy(img), 1e-3, 2e-3)
     out.backward()
@@ -186,7 +187,8 @@ def test_load_jax_variables_from_remat_flagship(rng_np):
     inputs = flagship_inputs()
     v = _random_variables(jm, inputs, train=True)
     assert "CheckpointResNetFeatures_0" in v["params"]["extractor"]
-    tm = TripleDNet(ModelConfig(**kw))
+    with kernels_not_drawn():  # the load overwrites every parameter
+        tm = TripleDNet(ModelConfig(**kw))
     load_jax_variables(tm, v["params"], v["batch_stats"])
     images = inputs["color"][:, :1]
     want = jax_predict_fn(jm)(v, images)

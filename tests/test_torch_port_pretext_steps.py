@@ -16,7 +16,11 @@ automask off) with the preset's name, its shipped config's values
 last extractor stage 2x2: at 1x1, BatchNorm over two values per channel
 makes the gradient too ill-conditioned for TOL_F64).
 The map-pose inputs carry the motion masks of the frames
-(`data/transforms.motion_mask`) and labels drawn over the shipped alphas.
+(`data/transforms.motion_mask`) and labels drawn over the shipped alphas;
+its step, the autoencoder's and the inpainter's run at 64x96 (the pose
+net at 32x64), which they can: they take no crop; the map-pose step at
+scale 0 alone (its terms read the pose network's features of each pair,
+not the scales).
 
 The crop offset and rotation labels are fixed in both packages: the port's
 `aux_nets.draw_pretext` and the JAX package's `random_crop` and
@@ -111,11 +115,11 @@ def expected_keys(name, scales=range(4)):
         "mono_fm_joint_im_rot": ext + ["min_perceptional_loss", "ssl_rot_loss"]
         + [f"{k}/{s}" for s in scales for k in ("min_reconstruct_loss", "smooth_loss")],
         "mono_fm_joint_inpaint_map_pose":
-            [f"{k}/{s}" for s in range(4) for k in ("min_reconstruct_loss", "smooth_loss")]
+            [f"{k}/{s}" for s in scales for k in ("min_reconstruct_loss", "smooth_loss")]
             + ["map_pose_loss/1", "map_pose_loss/2"],
         "mono_fm_joint_equivariant_inpaint": ext + [
-            f"{k}/{s}" for s in range(4) for k in ("img_reconstruct_loss", "min_reconstruct_loss",
-                                                   "min_equivariant_loss", "smooth_loss")],
+            f"{k}/{s}" for s in scales for k in ("img_reconstruct_loss", "min_reconstruct_loss",
+                                                 "min_equivariant_loss", "smooth_loss")],
         "autoencoder": [f"smooth_loss/{i}" for i in range(5)]
         + [f"min_reconstruct_loss/{s}" for s in range(4)],
         "rotnet": [f"smooth_loss/{i}" for i in range(5)] + ["ssl_rot_loss"],
@@ -137,5 +141,8 @@ def hold_f64(name, inputs=None, **extra):
 
 
 def test_map_pose_step_float64_matches_jax(fixed_draws):
-    tm = hold_f64("mono_fm_joint_inpaint_map_pose")
+    # at 64x96 and scale 0 with both source frames (a map-pose term each):
+    # no crop here
+    tm = hold_f64("mono_fm_joint_inpaint_map_pose", inputs=pretext_inputs(h=64, w=96),
+                  height=64, width=96, pose_width=64, scales=(0,))
     assert tm["map_pose_loss/1"] > 0 and tm["map_pose_loss/2"] > 0

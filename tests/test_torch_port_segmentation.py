@@ -37,7 +37,12 @@ import torch
 
 from test_seg_train_cli import _make_seg_tree
 from test_torch_port_flagship_f64 import TOL_F64
-from test_torch_port_step import _random_variables, check_against_jax, release_jax_memory
+from test_torch_port_step import (
+    _random_variables,
+    check_against_jax,
+    kernels_not_drawn,
+    release_jax_memory,
+)
 from tripled_tpu.config import DataConfig as JaxDataConfig
 from tripled_tpu.config import ModelConfig as JaxModelConfig
 from tripled_tpu.config import OptimConfig as JaxOptimConfig
@@ -312,7 +317,8 @@ def test_segmentation_model_float64_matches_jax(name, kitti_tree):
     release_jax_memory()
 
     def port_model(p, s):
-        m = build_segmentation_model(ModelConfig(**_model_kwargs()), name, 20).double()
+        with kernels_not_drawn():  # the load overwrites every parameter
+            m = build_segmentation_model(ModelConfig(**_model_kwargs()), name, 20).double()
         load_jax_variables(m, p, s)  # strict: nothing unused, nothing unwritten
         return m
 

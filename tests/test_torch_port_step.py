@@ -32,6 +32,7 @@ Float32 tolerances (TOL_F32) and why:
 import copy
 import ctypes
 import gc
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -41,6 +42,7 @@ import torch
 from tripled_tpu.config import ModelConfig as JaxModelConfig
 from tripled_tpu.config import OptimConfig as JaxOptimConfig
 from tripled_tpu.models.registry import build_model
+from tripled_tpu.parallel.mesh import replicated_sharding, shard_batch
 from tripled_tpu.train.optim import make_optimizer
 from tripled_tpu.train.state import TrainState
 from tripled_tpu.train.step import make_train_step as jax_train_step
@@ -114,43 +116,71 @@ def _random_variables(model, inputs, dtype=np.float32):
     return fill(shapes["params"]), fill(shapes["batch_stats"])
 
 
+def kernels_not_drawn():
+    """Inside the block, the port's models leave their ResNet kernels as
+    nn.Conv2d initialised them, instead of drawing truncated normals (which
+    take seconds for three ResNets on one thread): for models whose every
+    parameter `load_jax_variables` then overwrites."""
+    return mock.patch.object(torch.nn.init, "trunc_normal_", lambda t, *a, **k: t)
+
+
+def port_template(kwargs, tdtype):
+    """The port's model of `kwargs` in `tdtype`, built under
+    `kernels_not_drawn`: a template for `_port_model`, whose load overwrites
+    every parameter and statistic."""
+    with kernels_not_drawn():
+        return create_train_state(ModelConfig(**kwargs), OptimConfig(), STEPS_PER_EPOCH,
+                                  device="cpu").model.to(tdtype)
+
+
 def _port_model(kwargs, tdtype, params, stats, template=None):
     """The port's model of `kwargs` holding the JAX variables; a copy of
-    `template`, that model freshly initialised, where given (quicker: the
-    load overwrites every parameter and statistic, `load_jax_variables`
+    `template`, that model built by `port_template`, where given (quicker:
+    the load overwrites every parameter and statistic, `load_jax_variables`
     checks)."""
     if template is None:
-        template = create_train_state(ModelConfig(**kwargs), OptimConfig(),
-                                      STEPS_PER_EPOCH, device="cpu").model.to(tdtype)
+        template = port_template(kwargs, tdtype)
     model = copy.deepcopy(template)
     load_jax_variables(model, jax.tree_util.tree_map(np.asarray, params),
                        jax.tree_util.tree_map(np.asarray, stats))
     return model
 
 
-def run_both(kwargs, dtype=np.float32, inputs=None):
+def run_both(kwargs, dtype=np.float32, inputs=None, mesh=None, before_jax=None):
     """One step in each package of the model that `kwargs` configure (the
     same ModelConfig fields in both), on `inputs` (default: make_inputs).
     Returns (JAX metrics, port metrics, port model after the step, JAX
-    parameters after the step and JAX gradients, each in a port model)."""
+    parameters after the step and JAX gradients, each in a port model).
+    With `mesh`, the JAX step runs on it, the state replicated and the
+    batch split along dim 0 (`tripled_tpu.parallel.mesh`). `before_jax`,
+    where given, is called with the port's model holding the start
+    weights before the JAX step compiles (to start work beside it)."""
     inputs = make_inputs(dtype) if inputs is None else inputs
     jmodel = build_model(JaxModelConfig(**kwargs))
     params, stats = _random_variables(jmodel, inputs, dtype)
+    tdtype = torch.from_numpy(np.zeros(0, dtype)).dtype
+    template = port_template(kwargs, tdtype)
+    model = _port_model(kwargs, tdtype, params, stats, template)
+    if before_jax is not None:
+        before_jax(model)
     tx, _ = make_optimizer(JaxOptimConfig(warmup_iters=2), steps_per_epoch=STEPS_PER_EPOCH)
     state = TrainState(step=jnp.zeros((), jnp.int32), params=params, batch_stats=stats,
                        opt_state=tx.init(params))
+    jinputs = inputs
+    if mesh is not None:
+        state = jax.device_put(state, replicated_sharding(mesh))
+        jinputs = shard_batch(inputs, mesh)
     rng = jax.random.PRNGKey(0)
-    # float32: a lower XLA optimisation level compiles quicker and runs as
-    # fast; float64 convolutions run 7x slower at that level
-    options = {"xla_backend_optimization_level": 0} if dtype == np.float32 else None
-    step = jax_train_step(jmodel, tx, donate=False).lower(state, inputs, rng).compile(options)
-    new_state, jm = step(state, inputs, rng)
+    # XLA's optimisation level 1: a fifth less compile time than the
+    # default, and as quick a step (level 0 runs float32 convolutions 6x and
+    # float64 ones 10x slower); the bf16 steps keep level 0, whose bf16
+    # roundings their bounds were set against (tests/test_torch_port_bf16.py)
+    bf16 = kwargs.get("compute_dtype") == "bfloat16"
+    options = {"xla_backend_optimization_level": 0 if bf16 else 1}
+    step = jax_train_step(jmodel, tx, donate=False).lower(state, jinputs, rng).compile(options)
+    new_state, jm = step(state, jinputs, rng)
     jm = {k: float(v) for k, v in jm.items()}
 
-    tdtype = torch.from_numpy(np.zeros(0, dtype)).dtype
-    template = create_train_state(ModelConfig(**kwargs), OptimConfig(), STEPS_PER_EPOCH,
-                                  device="cpu").model.to(tdtype)
-    model = _port_model(kwargs, tdtype, params, stats, template)
     optimizer = Adam(model, OptimConfig(warmup_iters=2), STEPS_PER_EPOCH)
     tm = make_train_step(model, optimizer)(
         {k: torch.from_numpy(v) for k, v in inputs.items()})

@@ -1,7 +1,8 @@
 """The mono_fm step of `test_torch_port_step.py` in float64, automask off,
-against the JAX package's step on the CPU, with one source frame (the JAX
-step's trace and compile grow with the frames; the float32 files hold
-both).
+against the JAX package's step on the CPU, with one source frame and
+scale 0 at 64x96 (the JAX step's trace and compile grow with the frames
+and scales, its float64 run with the pixels; the float32 files hold both
+frames and every scale at 64x128).
 
 In float64 the max pools' near-ties fall the same way in both packages, so
 the step is held tightly, tensor by tensor and element by element (seen:
@@ -31,10 +32,11 @@ TOL_F64 = dict(loss=1e-12, f32_reduced_loss=1e-6, grad_norm=1e-10, grad=1e-9, pa
 
 
 def test_mono_fm_step_float64_matches_jax():
-    inputs = make_inputs(np.float64)
+    inputs = make_inputs(np.float64, h=64, w=96)
     for key in ("color", "color_aug"):
         inputs[key] = inputs[key][:, :2]
+    kwargs = dict(mono_fm_kwargs(automask=False), frame_ids=(0, 1), scales=(0,), height=64,
+                  width=96, pose_height=64, pose_width=96)
     with jax.enable_x64(True):
-        results = run_both(dict(mono_fm_kwargs(automask=False), frame_ids=(0, 1)),
-                           dtype=np.float64, inputs=inputs)
+        results = run_both(kwargs, dtype=np.float64, inputs=inputs)
     check_against_jax(*results, automask=False, tol=TOL_F64)

@@ -6,7 +6,16 @@
         [--max_steps_per_epoch N] [--auto_resume] [--device cuda|cpu]
 
 One process on one device; `--device cuda` (the default) raises when no
-card is visible.
+card is visible. On N cards, one rank per card under torchrun:
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m tripled_tpu_torch.cli.train --config CFG [--device cpu]
+
+Each rank joins the group from torchrun's environment
+(`parallel.init_from_env`: NCCL on `cuda:LOCAL_RANK`, gloo with
+`--device cpu`; a group that does not come up raises) and trains on its
+share of every global batch of `batch_size * N` frames, the JAX package's
+multi-process convention. The group is torn down at the end.
 """
 
 from __future__ import annotations
@@ -33,12 +42,24 @@ def parse_args(argv=None):
 def main(argv=None):
     """Returns train_mono's (state, eval metrics by epoch)."""
     args = parse_args(argv)
-    from tripled_tpu_torch.config import dump_config, load_config
-    from tripled_tpu_torch.data.get_dataset import get_dataset
-    from tripled_tpu_torch.train.loop import get_root_logger, train_mono
+    from tripled_tpu_torch.parallel import dist
     from tripled_tpu_torch.utils.device import resolve_device
 
-    device = resolve_device(args.device)
+    if "WORLD_SIZE" in os.environ:  # under torchrun
+        device = dist.init_from_env(args.device)
+        try:
+            return _run(args, device)
+        finally:
+            dist.destroy()
+    return _run(args, resolve_device(args.device))
+
+
+def _run(args, device):
+    from tripled_tpu_torch.config import dump_config, load_config
+    from tripled_tpu_torch.data.get_dataset import get_dataset
+    from tripled_tpu_torch.parallel import dist
+    from tripled_tpu_torch.train.loop import get_root_logger, train_mono
+
     cfg = load_config(args.config)
     updates = {}
     if args.work_dir:
@@ -57,8 +78,10 @@ def main(argv=None):
 
     log = get_root_logger()
     os.makedirs(cfg.work_dir, exist_ok=True)
-    dump_config(cfg, os.path.join(cfg.work_dir, "config_dump.py"))
-    log.info("model: %s; work_dir: %s; device: %s", cfg.model.name, cfg.work_dir, device)
+    if dist.is_main():
+        dump_config(cfg, os.path.join(cfg.work_dir, "config_dump.py"))
+    log.info("model: %s; work_dir: %s; device: %s; ranks: %d (%s)", cfg.model.name,
+             cfg.work_dir, device, dist.world_size(), dist.backend_name())
 
     val_ds = None
     if cfg.validate:

@@ -20,16 +20,24 @@ import torch
 
 
 class BatchLoader:
-    """Batches of `batch_size` samples; the samples past the last whole
-    batch of an epoch's order are dropped."""
+    """Batches of `batch_size` samples of shard `shard_index` of
+    `num_shards` (a rank of `parallel.dist`; the global batch is
+    batch_size * num_shards). Each epoch's order is cut to whole global
+    batches (`drop_last`) or padded to them from its start, then split into
+    contiguous per-shard slices, as the JAX loader and the reference's
+    DistributedGroupSampler do."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 1024,
-                 num_workers: int = 4):
+                 num_workers: int = 4, num_shards: int = 1, shard_index: int = 0,
+                 drop_last: bool = True):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.num_workers = max(1, num_workers)
+        self.num_shards = num_shards
+        self.shard_index = shard_index
+        self.drop_last = drop_last
         self.epoch = 0
 
     def set_epoch(self, epoch: int):
@@ -39,7 +47,13 @@ class BatchLoader:
         n = len(self.dataset)
         g = np.random.RandomState(self.seed + self.epoch)
         idx = g.permutation(n) if self.shuffle else np.arange(n)
-        return idx[:(n // self.batch_size) * self.batch_size]
+        global_batch = self.batch_size * self.num_shards
+        if self.drop_last:
+            idx = idx[:(n // global_batch) * global_batch]
+        else:
+            idx = np.concatenate([idx, idx[:(-n) % global_batch]])
+        per = len(idx) // self.num_shards
+        return idx[self.shard_index * per:(self.shard_index + 1) * per]
 
     def __len__(self):
         return len(self._epoch_indices()) // self.batch_size

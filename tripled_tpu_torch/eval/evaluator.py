@@ -1,7 +1,10 @@
 """Depth evaluator for the training loop's eval hook and the eval CLI
-(`tripled_tpu/eval/evaluator.py`), in one process: every image of the
-dataset, in batches of `batch_size` (the last one padded by repeating its
-last image), then the per-image Eigen protocol on the host."""
+(`tripled_tpu/eval/evaluator.py`): the images in batches of `batch_size`
+(the last one padded by repeating its last image), then the per-image
+Eigen protocol on the host. With more than one rank (`parallel.dist`)
+each rank evaluates `range(rank, n, world)`, as the reference's eval hook
+and the JAX evaluator do, and the per-image metric rows, NaN-padded to a
+common count, are gathered to every rank before the aggregate."""
 
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from tripled_tpu_torch.eval.depth_metrics import (
     batch_post_process_disparity,
     per_image_depth_metrics,
 )
+from tripled_tpu_torch.parallel import dist
 
 
 class DepthEvaluator:
@@ -29,6 +33,7 @@ class DepthEvaluator:
         stereo_scale: bool = False,
         flip_post_process: bool = False,
         device="cuda",
+        shard_across_processes: bool = True,
     ):
         self.predict_fn = predict_fn
         self.dataset = dataset
@@ -36,6 +41,12 @@ class DepthEvaluator:
         self.stereo_scale = stereo_scale
         self.flip_post_process = flip_post_process
         self.device = torch.device(device)
+        self.shard_across_processes = shard_across_processes
+
+    def _shard(self):
+        if not self.shard_across_processes:
+            return 0, 1
+        return dist.rank(), dist.world_size()
 
     def _predict(self, images: torch.Tensor) -> np.ndarray:
         return self.predict_fn(images)[..., 0].cpu().numpy()
@@ -70,15 +81,30 @@ class DepthEvaluator:
     def run(self) -> dict:
         """The 7 Eigen metrics, the scale ratios' median and spread, and
         eval_fps (images/s of the whole loop)."""
-        indices = list(range(len(self.dataset)))
+        p_idx, p_cnt = self._shard()
+        n = len(self.dataset)
+        indices = list(range(p_idx, n, p_cnt))
         disps, fps = self._collect_disps(indices)
         rows = [r for i, d in zip(indices, disps)
                 if (r := per_image_depth_metrics(d, self.dataset.gt_depths[i],
                                                  stereo_scale=self.stereo_scale)) is not None]
         rows = np.stack(rows) if rows else np.zeros((0, 8), np.float64)
+        if p_cnt > 1:
+            rows = self._allgather_rows(rows, n, p_cnt)
         mean_errors, ratio_med, ratio_std = aggregate_depth_metric_rows(rows)
         metrics = dict(zip(METRIC_NAMES, [float(x) for x in mean_errors]))
         metrics["scale_ratio_med"] = float(ratio_med)
         metrics["scale_ratio_std"] = float(ratio_std)
         metrics["eval_fps"] = float(fps)
         return metrics
+
+    def _allgather_rows(self, rows: np.ndarray, n_total: int, p_cnt: int) -> np.ndarray:
+        """Every rank's rows, in rank order: each rank's NaN-padded to the
+        most a rank can hold, gathered on the evaluator's device (NCCL
+        gathers CUDA tensors only), the padding dropped."""
+        max_local = -(-n_total // p_cnt)
+        padded = np.full((max_local, rows.shape[1]), np.nan, np.float64)
+        padded[:len(rows)] = rows
+        gathered = dist.gather_rows(torch.from_numpy(padded).to(self.device)[None])
+        gathered = gathered.cpu().numpy().reshape(-1, rows.shape[1])
+        return gathered[~np.isnan(gathered[:, 0])]

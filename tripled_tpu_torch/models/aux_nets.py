@@ -31,16 +31,19 @@ from tripled_tpu_torch.models.encoders import Extractor
 from tripled_tpu_torch.models.layers import flax_init_
 from tripled_tpu_torch.ops.image import resize_bilinear
 from tripled_tpu_torch.ops.losses import erased_mean, feature_regularization_loss, reprojection_loss
+from tripled_tpu_torch.parallel.dist import gather_rows, rank_rows, world_size
 
 
 def draw_pretext(generator: torch.Generator | None, batch: int, height: int, width: int,
                  size: int):
     """(ri, rj, labels): the batch's crop offset, host integers with
     0 <= ri <= height - size and 0 <= rj <= width - size, and a CPU int64
-    tensor of `batch` rotation labels in {0, 1, 2, 3}."""
+    tensor of `batch` rotation labels in {0, 1, 2, 3}. The labels are drawn
+    for the global batch and each rank keeps its rows
+    (`parallel.dist.rank_rows`); the offset is one for all."""
     ri = int(torch.randint(0, height - size + 1, (), generator=generator))
     rj = int(torch.randint(0, width - size + 1, (), generator=generator))
-    labels = torch.randint(0, 4, (batch,), generator=generator)
+    labels = rank_rows(torch.randint(0, 4, (batch * world_size(),), generator=generator))
     return ri, rj, labels
 
 
@@ -58,9 +61,14 @@ def rotate_batch(x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def cross_entropy_with_batch_softmax(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """The cross entropy of log_softmax over classes of softmax over the
-    *batch* of the logits, averaged over the batch."""
+    *batch* of the logits, averaged over the batch. The batch is the global
+    one: with more than one rank, every rank's logits and labels are
+    gathered (`parallel.dist.gather_rows`) and each rank computes the whole
+    loss."""
+    logits = gather_rows(logits)
+    labels = gather_rows(labels.to(logits.device))
     logp = torch.log_softmax(torch.softmax(logits, dim=0), dim=-1)
-    return -logp.gather(1, labels.to(logits.device)[:, None]).mean()
+    return -logp.gather(1, labels[:, None]).mean()
 
 
 class Dense(nn.Linear):

@@ -20,14 +20,19 @@ import torch.nn.functional as F
 
 from tripled_tpu_torch.models.layers import CRPBlock, Conv1x1, Conv3x3, UpShuffle, remat
 from tripled_tpu_torch.ops.image import upsample2x_nearest
+from tripled_tpu_torch.parallel.dist import rank_rows, world_size
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
     """Inverted dropout drawn from `generator` (keep with prob 1 - rate).
     The uniform is float32 whatever x's dtype: bf16's 8-bit mantissa would
-    shift the keep probability."""
+    shift the keep probability. It is drawn at the global batch's shape,
+    and each rank keeps its rows (`parallel.dist.rank_rows`): R ranks drop
+    what one process drops on the same frames."""
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device, dtype=torch.float32) < keep
+    shape = (x.shape[0] * world_size(), *x.shape[1:])
+    u = torch.rand(shape, generator=generator, device=x.device, dtype=torch.float32)
+    mask = rank_rows(u) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

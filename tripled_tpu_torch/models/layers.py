@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from tripled_tpu_torch.ops.image import upsample2x_nearest
+from tripled_tpu_torch.parallel import dist
 
 _state = threading.local()
 
@@ -143,6 +144,55 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x.to(dtype), self.weight.to(dtype), bias)
 
 
+class _CrossRankBatchNorm(torch.autograd.Function):
+    """Training-mode batch normalisation over the batch of every rank.
+
+    Forward: each rank's per-channel count, mean and biased variance
+    (`torch.var_mean`, one pass), gathered in one all-reduce and combined
+    by Chan's parallel formula, var = sum n_r (var_r + (mean_r - mean)^2) / N.
+    Chosen over an all-reduce of the sum and the sum of squares, whose
+    E[x^2] - E[x]^2 cancels in float32 where the mean is large against the
+    spread, and over a second centred pass, which would read the
+    activations twice and all-reduce twice. Backward: one all-reduce of
+    sum(dy) and sum(dy * xhat) over every rank's pixels, so that dx is the
+    gradient of the ranks' summed losses; the scale's and bias's gradients
+    are this rank's own sums (the gradients' all-reduce adds the ranks').
+    Arithmetic in `dtype` (float32 at least); returns x's dtype, the batch
+    mean and biased variance."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, dtype):
+        xc = x.to(dtype)
+        var, mean = torch.var_mean(xc, dim=(0, 2, 3), correction=0)
+        count = torch.full_like(mean, xc.numel() // xc.shape[1])
+        stats = dist.gather_rows(torch.stack([count, mean, var])[None])  # (ranks, 3, C)
+        counts, means, variances = stats.unbind(1)
+        n = counts.sum(0)
+        mean = (counts * means).sum(0) / n
+        var = (counts * (variances + (means - mean) ** 2)).sum(0) / n
+        invstd = torch.rsqrt(var + eps)
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.dtype, ctx.count = dtype, n
+        ctx.mark_non_differentiable(mean, var)
+        shape = (1, -1, 1, 1)
+        y = (xc - mean.view(shape)) * (invstd * weight).view(shape) + bias.view(shape)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        x, weight, mean, invstd = ctx.saved_tensors
+        shape = (1, -1, 1, 1)
+        g = gy.to(ctx.dtype)
+        xhat = (x.to(ctx.dtype) - mean.view(shape)) * invstd.view(shape)
+        sum_dy = g.sum(dim=(0, 2, 3))
+        sum_dy_xhat = (g * xhat).sum(dim=(0, 2, 3))
+        sums = dist.global_sum(torch.stack([sum_dy, sum_dy_xhat]))
+        n = ctx.count.view(shape)
+        gx = (weight * invstd).view(shape) * (
+            g - sums[0].view(shape) / n - xhat * sums[1].view(shape) / n)
+        return gx.to(x.dtype), sum_dy_xhat.to(weight.dtype), sum_dy.to(weight.dtype), None, None
+
+
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm2d (momentum 0.1, eps 1e-5) whose running variance takes
     the biased batch variance, as flax's BatchNorm does; PyTorch's own
@@ -153,7 +203,14 @@ class BatchNorm(nn.BatchNorm2d):
     as given (bf16-rounded under mixed precision), running statistics in
     float32, the output in the input's dtype. In a `remat` recompute it
     normalises with the batch statistics, as the forward did, and leaves the
-    running statistics and the batch count alone: the forward moved them."""
+    running statistics and the batch count alone: the forward moved them.
+
+    In training with more than one rank (`parallel.dist`), the batch
+    statistics are those of every rank's batch (`_CrossRankBatchNorm`), as
+    the JAX package's BatchNorm reduces over the global batch under a mesh.
+    A `remat` recompute reruns that all-reduce; every rank recomputes the
+    same blocks in the same order, so the collectives pair up. With one
+    rank it is the `F.batch_norm` path, bit for bit."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # float32 at least (float64 stays float64)
@@ -162,6 +219,15 @@ class BatchNorm(nn.BatchNorm2d):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, weight, bias, False,
                                 0.0, self.eps)
+        if dist.world_size() > 1:
+            y, mean, var = _CrossRankBatchNorm.apply(x, weight, bias, self.eps, dtype)
+            if not recomputing():
+                with torch.no_grad():
+                    self.num_batches_tracked.add_(1)
+                    m = self.momentum
+                    self.running_mean.mul_(1 - m).add_(m * mean.to(self.running_mean.dtype))
+                    self.running_var.mul_(1 - m).add_(m * var.to(self.running_var.dtype))
+            return y
         if recomputing():
             # throwaway copies take the update: the output is the same, and
             # autograd saves tensors of the same shapes as in the forward,

@@ -94,6 +94,7 @@ from tripled_tpu_torch.ops.losses import (
 )
 from tripled_tpu_torch.ops.photometric import fused_min_reprojection
 from tripled_tpu_torch.ops.warp import grid_sample, grid_sample_block
+from tripled_tpu_torch.parallel.dist import global_min, global_sum, rank_rows, world_size
 from tripled_tpu_torch.presets import canonicalize
 
 
@@ -603,9 +604,11 @@ class TripleDNet(nn.Module):
             else:
                 noise = None
                 if ident_losses:
-                    shape = (*ident_losses[0].shape[:3], len(ident_losses))
-                    noise = torch.randn(shape, generator=automask, dtype=target.dtype,
-                                        device=target.device) * 1e-5
+                    # drawn for the global batch; the rank keeps its rows
+                    b, h, w = ident_losses[0].shape[:3]
+                    noise = rank_rows(torch.randn(
+                        (b * world_size(), h, w, len(ident_losses)), generator=automask,
+                        dtype=target.dtype, device=target.device)) * 1e-5
                 min_rec = min_reprojection_with_automask(
                     [reprojection_loss(p, target) for p in warped], ident_losses, noise)
             loss_dict[f"min_reconstruct_loss/{s}"] = min_rec.mean() / n_scales
@@ -649,17 +652,23 @@ class TripleDNet(nn.Module):
         """The least over source frames of the decoded source's SSIM + L1
         loss against that frame, on the pixels its warped erase mask
         erased. A frame whose warped mask erased nothing gives 0: the JAX
-        package guards the reference's division there."""
+        package guards the reference's division there. Sums and the least
+        are over the global batch: with more than one rank, each frame's
+        erased count is summed over the ranks and the frame whose global
+        mean is least is taken (`parallel.dist.global_min`)."""
         losses = []
+        world = world_size()
         for i in range(1, self.cfg.num_frames):
             res = eq["res_imgs"][i][s]
             h, w = res.shape[1], res.shape[2]
             l = reprojection_loss(res, resize_bilinear(inputs["color"][:, i], h, w))
             erased = 1 - resize_bilinear(eq["masks"][i][s], h, w)
             num, denom = (l * erased).sum(), erased.sum()
+            if world > 1:  # the nearest-warped mask's count has no gradient
+                num, denom = num * world, global_sum(denom)
             losses.append(torch.where(denom > 0, num, torch.zeros_like(num))
                           / denom.clamp_min(1.0))
-        return torch.stack(losses).min()
+        return global_min(torch.stack(losses))
 
     def _sep_loss(self, gt, pred, mask):
         l = perceptional_loss(gt, pred)

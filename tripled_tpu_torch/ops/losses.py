@@ -11,6 +11,7 @@ import torch
 
 from tripled_tpu_torch.ops.image import resize_area
 from tripled_tpu_torch.ops.ssim import ssim
+from tripled_tpu_torch.parallel.dist import global_ratio
 
 
 def robust_l1(pred: torch.Tensor, target: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
@@ -106,5 +107,7 @@ def feature_regularization_loss(feature: torch.Tensor, img: torch.Tensor, dis: f
 def erased_mean(loss: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Mean of a per-pixel loss over the erased pixels, weighted by
     1 - mask (mask 1 = keep): sum(loss * (1 - m)) / sum(1 - m), unguarded
-    as in the JAX package (a mask with nothing erased gives nan)."""
-    return (loss * (1 - mask)).sum() / (1 - mask).sum()
+    as in the JAX package (a mask with nothing erased gives nan). Both sums
+    run over the global batch: with more than one rank, the rank's share
+    (`parallel.dist.global_ratio`)."""
+    return global_ratio((loss * (1 - mask)).sum(), (1 - mask).sum())

@@ -8,6 +8,13 @@ every `checkpoint_interval` epochs and the Eigen eval hook every
 for its batches, how many frames each decoder (the native loader, PIL)
 has decoded so far, and for the map dataset the host seconds its motion
 masks took so far.
+
+Data parallel (`parallel.dist`, under torchrun): each rank loads its shard
+of every global batch of `batch_size * world_size` frames, the state is
+copied from rank 0 after it is built, restored or loaded, the step
+averages the gradients and the losses over the ranks, and the eval hook
+shares the images out by rank. Rank 0 alone logs at INFO, writes
+metrics.jsonl and saves the checkpoints; the others wait for the save.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from tripled_tpu_torch.config import ExperimentConfig
 from tripled_tpu_torch.data.get_dataset import get_dataset
 from tripled_tpu_torch.data.pipeline import BatchLoader, prefetch_to_device
 from tripled_tpu_torch.eval.evaluator import DepthEvaluator
+from tripled_tpu_torch.parallel import dist
 from tripled_tpu_torch.train import checkpoint as ckpt
 from tripled_tpu_torch.train.state import create_train_state
 from tripled_tpu_torch.train.step import make_predict_fn, make_train_step
@@ -36,7 +44,7 @@ def get_root_logger(log_level=logging.INFO):
         h = logging.StreamHandler()
         h.setFormatter(logging.Formatter("%(asctime)s - %(levelname)s - %(message)s"))
         logger.addHandler(h)
-    logger.setLevel(log_level)
+    logger.setLevel(log_level if dist.is_main() else logging.ERROR)
     return logger
 
 
@@ -58,8 +66,10 @@ def train_mono(
     if counters is not None:
         log.info("frames decode with %s", "the native loader" if train_dataset.use_native
                  else "PIL (the native loader is off or did not build)")
+    world = dist.world_size()
     loader = BatchLoader(train_dataset, batch_size=cfg.data.batch_size,
-                         shuffle=cfg.data.shuffle, seed=cfg.seed)
+                         shuffle=cfg.data.shuffle, seed=cfg.seed, num_shards=world,
+                         shard_index=dist.rank())
     # before the optimizer: its LR schedule counts epochs in these steps
     steps_per_epoch = max(len(loader), 1)
     if max_steps_per_epoch:
@@ -74,6 +84,7 @@ def train_mono(
     elif cfg.finetune or cfg.load_from:
         state = ckpt.load_weights(cfg.finetune or cfg.load_from, state)
         log.info("loaded weights from %s", cfg.finetune or cfg.load_from)
+    dist.broadcast_state(state.model, state.optimizer)
 
     optimizer = state.optimizer
     train_step = make_train_step(state.model, optimizer)
@@ -91,7 +102,7 @@ def train_mono(
         evaluator = DepthEvaluator(make_predict_fn(state.model), val_dataset,
                                    stereo_scale=cfg.data.stereo_scale, device=device)
 
-    mlogger = MetricLogger(cfg.work_dir)
+    mlogger = MetricLogger(cfg.work_dir) if dist.is_main() else None
     metrics_history = []
     try:
         for epoch in range(start_epoch, cfg.optim.total_epochs):
@@ -114,13 +125,14 @@ def train_mono(
                         lr = optimizer.schedule(optimizer.count)
                         log.info("epoch %d iter %d/%d lr %.2e loss %.4f", epoch, it,
                                  steps_per_epoch, lr, m["loss"])
-                        mlogger.log(optimizer.count, {**m, "lr": lr}, prefix="train/")
+                        if mlogger is not None:
+                            mlogger.log(optimizer.count, {**m, "lr": lr}, prefix="train/")
             finally:
                 batches.close()
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             dt = time.perf_counter() - t_epoch
-            n_imgs = n_steps * cfg.data.batch_size
+            n_imgs = n_steps * cfg.data.batch_size * world
             log.info("epoch %d done in %.1fs (%.2f imgs/s); waited %.3f s for batches "
                      "(%.1f ms per step)", epoch, dt, n_imgs / max(dt, 1e-9), wait_s,
                      1e3 * wait_s / max(n_steps, 1))
@@ -128,11 +140,14 @@ def train_mono(
                    "loader_wait_s": wait_s}
             if counters is not None:
                 row.update(counters)
-            mlogger.log(optimizer.count, row, prefix="epoch/")
+            if mlogger is not None:
+                mlogger.log(optimizer.count, row, prefix="epoch/")
 
             if (epoch + 1) % cfg.checkpoint_interval == 0:
-                path = ckpt.save_checkpoint(cfg.work_dir, state, epoch + 1)
-                log.info("saved checkpoint %s", path)
+                if dist.is_main():
+                    path = ckpt.save_checkpoint(cfg.work_dir, state, epoch + 1)
+                    log.info("saved checkpoint %s", path)
+                dist.barrier(device)
 
             if evaluator is not None and (epoch + 1) % cfg.validate_interval == 0:
                 eval_metrics = evaluator.run()
@@ -140,7 +155,9 @@ def train_mono(
                 log.info("eval epoch %d: " + " ".join(f"{k}={v:.4f}"
                                                       for k, v in eval_metrics.items()),
                          epoch + 1)
-                mlogger.log(optimizer.count, eval_metrics, prefix="val/")
+                if mlogger is not None:
+                    mlogger.log(optimizer.count, eval_metrics, prefix="val/")
     finally:
-        mlogger.close()
+        if mlogger is not None:
+            mlogger.close()
     return state, metrics_history

@@ -16,12 +16,14 @@ automask stream (`tripled_tpu/train/state.py:28`)."""
 
 from __future__ import annotations
 
+import functools
 from contextlib import contextmanager, nullcontext
 from typing import Callable, Dict
 
 import torch
 
 from tripled_tpu_torch.ops.geometry import disp_to_depth
+from tripled_tpu_torch.parallel import dist
 from tripled_tpu_torch.train.optim import Adam
 
 
@@ -52,7 +54,10 @@ def cast_floating(model: torch.nn.Module, dtype: torch.dtype):
 def make_train_step(model: torch.nn.Module, optimizer: Adam) -> Callable:
     """step(batch, generator=None, pretext=None, automask=None) -> metrics:
     every loss_dict entry, `loss` (their sum) and `grad_norm` (before
-    clipping), as 0-d float32 tensors. `model` is any preset's module
+    clipping), as 0-d float32 tensors. With more than one rank
+    (`parallel.dist`) the gradients are averaged over the ranks between the
+    backward and the update, and the losses returned are the means over the
+    ranks: the global batch's. `model` is any preset's module
     (`presets.build_model`). `generator` draws the decoder's dropout,
     `pretext` the rotation pretext's crop and labels, `automask` the
     unfused photometric path's tie-break noise. Under
@@ -71,9 +76,15 @@ def make_train_step(model: torch.nn.Module, optimizer: Adam) -> Callable:
             loss_dict = model(batch, generator, pretext, automask)[1]
             total = sum(loss_dict.values())
             total.backward()
+        # the global gradient before the clip and the update
+        dist.all_reduce_grads(model.parameters())
         grad_norm = optimizer.step()
         metrics = {k: v.detach() for k, v in loss_dict.items()}
         metrics["loss"] = total.detach()
+        if dist.world_size() > 1:  # the global batch's losses, in one all-reduce
+            dtype = functools.reduce(torch.promote_types, (v.dtype for v in metrics.values()))
+            values = dist.all_mean(torch.stack([v.to(dtype) for v in metrics.values()]))
+            metrics = {k: x.to(v.dtype) for (k, v), x in zip(metrics.items(), values)}
         metrics["grad_norm"] = grad_norm
         return metrics
 
